@@ -5,14 +5,18 @@ It imports torch and numpy, never JAX or ``pggan_tpu``. The module layout
 mirrors ``pggan_tpu`` so that each module's counterpart is easy to find.
 Every Pallas kernel on a ported path is a hand-written CUDA kernel under
 ``csrc/``, built with ``nvcc`` at first use (``ops/_build.py``); each has a
-plain PyTorch version beside it that CPU tensors take. This slice ports the
-serving path: snapshot -> Generator -> ``python -m
-pggan_tpu_torch.cli.generate``.
+plain PyTorch version beside it that CPU tensors take. Ported so far: the
+serving path (snapshot -> Generator -> ``python -m
+pggan_tpu_torch.cli.generate``) and the WGAN-GP train step
+(``training.TrainStepBuilder``: Discriminator, losses, Adam, and the
+gradient penalty's double backward through the kernels).
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 from pggan_tpu_torch.checkpoint import load_snapshot, save_snapshot
+from pggan_tpu_torch.models.discriminator import Discriminator
 from pggan_tpu_torch.models.generator import Generator
 
-__all__ = ["Generator", "load_snapshot", "save_snapshot", "__version__"]
+__all__ = ["Discriminator", "Generator", "load_snapshot", "save_snapshot",
+           "__version__"]

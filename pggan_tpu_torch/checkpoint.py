@@ -5,7 +5,8 @@ writes: the model class, its constructor config, the parameters as a
 numpy tree with HWIO conv weights (``{"block0": {...}, "blocks": (...)}``),
 and the depth and alpha it was saved at. One snapshot file therefore loads
 in both packages; ``params_from_jax`` and ``params_to_jax`` convert the tree
-to the port's OIHW tensors and back, exactly. File names follow the
+to the port's OIHW tensors and back, exactly; ``d_params_from_jax`` and
+``d_params_to_jax`` do the same for the Discriminator. File names follow the
 reference layout ``network-snapshot-{generator|discriminator}-{kimg:06}.dat``.
 The training-state half of the JAX module comes with the training port.
 """
@@ -20,9 +21,11 @@ import re
 import numpy as np
 import torch
 
+from pggan_tpu_torch.models.discriminator import Discriminator
 from pggan_tpu_torch.models.generator import CONFIG_FIELDS, Generator
 
 _LAYERS = ("c1", "c2", "torgb")
+_D_LAYERS = ("fromrgb", "c1", "c2")
 
 
 def _atomic_dump(payload, path: str) -> None:
@@ -34,36 +37,62 @@ def _atomic_dump(payload, path: str) -> None:
     os.replace(tmp, path)
 
 
+def _block_from_jax(prefix, p, layers) -> dict:
+    """One block's layers as ``state_dict`` entries: HWIO -> OIHW."""
+    out = {}
+    for layer in layers:
+        w = np.asarray(p[layer]["w"])
+        out[f"{prefix}.{layer}.w"] = torch.from_numpy(
+            np.array(w.transpose(3, 2, 0, 1), order="C"))
+        out[f"{prefix}.{layer}.b"] = torch.from_numpy(np.array(p[layer]["b"]))
+    return out
+
+
+def _block_to_jax(b, layers) -> dict:
+    """One block's layers as the JAX tree's numpy leaves: OIHW -> HWIO."""
+    return {layer: {
+        "w": np.ascontiguousarray(
+            b[layer]["w"].detach().cpu().numpy().transpose(2, 3, 1, 0)),
+        "b": b[layer]["b"].detach().cpu().numpy().copy()}
+        for layer in layers}
+
+
 def params_from_jax(tree) -> dict:
     """The JAX params tree (numpy, HWIO conv weights) as a ``state_dict``
     for the port's ``Generator``: OIHW float32 CPU tensors."""
-    def block(prefix, p):
-        out = {}
-        for layer in _LAYERS:
-            w = np.asarray(p[layer]["w"])
-            out[f"{prefix}.{layer}.w"] = torch.from_numpy(
-                np.ascontiguousarray(w.transpose(3, 2, 0, 1)))
-            out[f"{prefix}.{layer}.b"] = torch.from_numpy(
-                np.array(p[layer]["b"]))
-        return out
-
-    sd = block("block0", tree["block0"])
+    sd = _block_from_jax("block0", tree["block0"], _LAYERS)
     for i, p in enumerate(tree["blocks"]):
-        sd.update(block(f"blocks.{i}", p))
+        sd.update(_block_from_jax(f"blocks.{i}", p, _LAYERS))
     return sd
 
 
 def params_to_jax(G: Generator) -> dict:
     """The port's parameters as the JAX params tree: numpy, HWIO."""
-    def block(b):
-        return {layer: {
-            "w": np.ascontiguousarray(
-                b[layer]["w"].detach().cpu().numpy().transpose(2, 3, 1, 0)),
-            "b": b[layer]["b"].detach().cpu().numpy().copy()}
-            for layer in _LAYERS}
+    return {"block0": _block_to_jax(G.block0, _LAYERS),
+            "blocks": tuple(_block_to_jax(b, _LAYERS) for b in G.blocks)}
 
-    return {"block0": block(G.block0),
-            "blocks": tuple(block(b) for b in G.blocks)}
+
+def d_params_from_jax(tree) -> dict:
+    """The JAX Discriminator's params tree as a ``state_dict`` for the
+    port's ``Discriminator``: OIHW conv weights, and the dense weight
+    transposed from (in, out) to (out, in)."""
+    sd = {}
+    for i, p in enumerate(tree["blocks"]):
+        sd.update(_block_from_jax(f"blocks.{i}", p, _D_LAYERS))
+    lin = tree["linear"]
+    sd["linear.w"] = torch.from_numpy(np.array(np.asarray(lin["w"]).T,
+                                               order="C"))
+    sd["linear.b"] = torch.from_numpy(np.array(lin["b"]))
+    return sd
+
+
+def d_params_to_jax(D: Discriminator) -> dict:
+    """The port's Discriminator parameters as the JAX params tree."""
+    return {"blocks": tuple(_block_to_jax(b, _D_LAYERS) for b in D.blocks),
+            "linear": {
+                "w": np.ascontiguousarray(
+                    D.linear["w"].detach().cpu().numpy().T),
+                "b": D.linear["b"].detach().cpu().numpy().copy()}}
 
 
 def model_config(model: Generator) -> dict:

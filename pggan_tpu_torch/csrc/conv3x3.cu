@@ -45,7 +45,7 @@ template <int KT, int EPI>
 __global__ void __launch_bounds__(kTX * kTY)
 conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
                const float* __restrict__ b, float* __restrict__ y,
-               float* __restrict__ r, int H, int C, int W, int K,
+               float* __restrict__ r, int H, int C, int W, int K, int KY,
                float slope, float eps) {
   using T = Tile<KT>;
   constexpr int PW = T::PW, TW = T::TW, SW = T::SW;
@@ -107,7 +107,7 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
   const int gr = row0 + ty;
   if (gr >= H) return;
-  float* yrow = y + ((long long)n * H + gr) * K * W;
+  float* yrow = y + ((long long)n * H + gr) * KY * W;
 #pragma unroll
   for (int j = 0; j < PW; ++j) {
     const int gc = col0 + tx + j * kTX;
@@ -129,7 +129,7 @@ struct Args {
   const float* b;
   float* y;
   float* r;
-  int N, H, C, W, K;
+  int N, H, C, W, K, KY;
   float slope, eps;
   cudaStream_t stream;
 };
@@ -146,7 +146,7 @@ int launch(const Args& a) {
   dim3 grid((a.W + T::TW - 1) / T::TW, (a.H + kTY - 1) / kTY, a.N);
   dim3 block(kTX, kTY);
   kern<<<grid, block, smem, a.stream>>>(a.x, a.w, a.b, a.y, a.r, a.H, a.C,
-                                        a.W, a.K, a.slope, a.eps);
+                                        a.W, a.K, a.KY, a.slope, a.eps);
   return (int)cudaGetLastError();
 }
 
@@ -163,12 +163,14 @@ int launch_epi(int epi, const Args& a) {
 }  // namespace
 
 // x (N, H, C, W); w (3, 3, C, KT) HWIO with K zero-padded to KT; b (KT,)
-// (unused for epi 0); y (N, H, K, W); r (N, H, W) for epi 2 only.
+// (unused for epi 0); y points at channel 0 of a K-channel slice of an
+// (N, H, KY, W) output, KY >= K (the wrapper launches once per slice of at
+// most 64 channels when KY > 64); r (N, H, W) for epi 2 only (KY == K).
 extern "C" int pggan_conv3x3(const float* x, const float* w, const float* b,
                              float* y, float* r, int N, int H, int C, int W,
-                             int K, int KT, int epi, float slope, float eps,
-                             void* stream) {
-  Args a{x, w, b, y, r, N, H, C, W, K, slope, eps,
+                             int K, int KY, int KT, int epi, float slope,
+                             float eps, void* stream) {
+  Args a{x, w, b, y, r, N, H, C, W, K, KY, slope, eps,
          static_cast<cudaStream_t>(stream)};
   switch (KT) {
     case 8: return launch_epi<8>(epi, a);

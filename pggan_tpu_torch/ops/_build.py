@@ -33,7 +33,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("conv3x3.cu", "conv_chain.cu", "upsample2x.cu")
+SOURCES = ("conv3x3.cu", "conv3x3_dw.cu", "conv_chain.cu", "upsample2x.cu",
+           "avgpool2x.cu")
 HEADERS = ("epilogue.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,9 +43,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, y, N, H, C, W, stream
     "pggan_upsample2x": (_P, _P, _I, _I, _I, _I, _P),
-    # x, w, b, y, r, N, H, C, W, K, KT, epi, slope, eps, stream
-    "pggan_conv3x3": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+    # x, y, N, H, C, W, stream
+    "pggan_avgpool2x": (_P, _P, _I, _I, _I, _I, _P),
+    # x, w, b, y, r, N, H, C, W, K, KY, KT, epi, slope, eps, stream
+    "pggan_conv3x3": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                       _F, _F, _P),
+    # x, ct, ws, dw, N, H, C, W, K, KT, rows_per_block, P, stream
+    "pggan_conv3x3_dw": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _P),
     # x, w1, b1, w2, b2, y, N, H, C, W, K1, K2, K1T, K2T, pn, slope, eps,
     # stream
     "pggan_conv3x3_chain": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -141,26 +147,32 @@ def launch(name: str, fn: str, *args) -> None:
 
 
 def check_kernel_inputs(*tensors: torch.Tensor) -> None:
-    """What every kernel takes: f32, contiguous, all on one device. The
-    wrappers check it on the CPU route too, so CPU runs hold callers to the
-    kernels' contract."""
+    """What every kernel takes: contiguous, all on one device, float32 (the
+    CUDA route) or float32 / float64 (the CPU route, so that ``gradcheck``
+    can hold the backward rules in float64). The wrappers check it on the
+    CPU route too, so CPU runs hold callers to the kernels' contract."""
     dev = tensors[0].device
+    dtypes = ((torch.float32, torch.float64) if dev.type == "cpu"
+              else (torch.float32,))
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"tensors on {t.device} and {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"kernel takes float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"kernel on {dev.type} takes "
+                            f"{' or '.join(map(str, dtypes))}, got {t.dtype}")
+        if t.dtype != tensors[0].dtype:
+            raise TypeError(f"mixed dtypes {t.dtype} and {tensors[0].dtype}")
         if not t.is_contiguous():
             raise ValueError("kernel takes contiguous tensors")
 
 
 def forbid_grad(*tensors: torch.Tensor) -> None:
-    """The kernels have no backward yet: refuse to build a graph through
-    them rather than silently detach."""
+    """For a forward-only kernel (the conv chain): refuse to build a graph
+    through it rather than silently detach."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             "forward-only kernel called on tensors that require grad; run "
-            "under torch.no_grad() (autograd comes with the training port)")
+            "under torch.no_grad()")
 
 
 def use_plain(x: torch.Tensor) -> bool:

@@ -1,30 +1,48 @@
 """Same-padding 3x3 convolution on NHCW tensors with an optional fused
-epilogue: the forward half of ``pggan_tpu/ops/pallas_conv.py``.
+epilogue, and its weight gradient, as autograd Functions that can be
+differentiated to any order: the counterpart of
+``pggan_tpu/ops/pallas_conv.py``.
 
-Three entry points, one CUDA kernel (``csrc/conv3x3.cu``) templated on the
-epilogue:
+Four Functions, two CUDA kernels:
 
 - ``conv3x3(x, w)``: the plain conv (TPU kernel ``conv3x3_small_c``);
 - ``conv3x3_act(x, w, b, slope=)``: ``lrelu(conv + b)``
   (``conv3x3_act_small_c`` with ``pn_eps=None``);
 - ``conv3x3_act_pn(x, w, b, slope=, eps=)``: ``pixelnorm(lrelu(conv + b))``
   over K, returning ``(o, r)`` with ``r = rsqrt(mean_K(z^2) + eps)`` of
-  shape (N, H, W) (``conv3x3_act_small_c`` with ``pn_eps`` set).
+  shape (N, H, W) (``conv3x3_act_small_c`` with ``pn_eps`` set);
+- ``conv3x3_dw(x, ct)``: the weight gradient, (3, 3, C, K)
+  (``conv3x3_dw_small_c``).
 
-x is (N, H, C, W) f32 and w is (3, 3, C, K) HWIO, already scaled by any
-equalized-LR constant, as in the JAX package. A CUDA tensor launches the
-kernel or raises; a CPU tensor takes the plain PyTorch version in this
-module. There is no autograd yet: a tensor that requires grad raises.
+The first three run ``csrc/conv3x3.cu``, templated on the epilogue, the
+last ``csrc/conv3x3_dw.cu``. x is (N, H, C, W) and w is (3, 3, C, K) HWIO,
+already scaled by any equalized-LR constant, as in the JAX package. Each
+Function chooses its route inside ``forward``: a CUDA tensor launches the
+kernel or raises, a CPU tensor takes the plain PyTorch version in this
+module, and either way the backward below is the one that runs.
 
-The kernel replaces ``pggan_tpu/ops/pallas_conv.py:conv3x3_small_c`` and
-``conv3x3_act_small_c``. On the H100 it is bound by f32 FMAs (18 C K FLOPs
-per output pixel, no TF32, for parity); a block stages a zero-padded halo
-tile of 8 input channels at a time in shared memory and keeps all K
-outputs of its pixels in registers, so pixelnorm's mean never leaves a
-thread (design notes in the source).
+The backward rules are the VJPs of the JAX rules (``pallas_conv.py:457-737``)
+and are built only from these Functions and differentiable torch ops, so the
+gradient penalty can differentiate D's input gradient a second time:
+``conv3x3`` and ``conv3x3_dw`` transpose into each other, and the fused
+epilogues take the activation mask from the sign of the output and close on
+pixelnorm's ``r``. A term whose input needs no gradient is skipped
+(``ctx.needs_input_grad``, fixed at forward time).
+
+The conv kernel is bound by f32 FMAs (18 C K FLOPs per output pixel, no
+TF32, for parity); a block stages a zero-padded halo tile of 8 input
+channels at a time in shared memory and keeps up to 64 outputs of its
+pixels in registers, so pixelnorm's mean never leaves a thread. Without
+pixelnorm, more than 64 output channels run as one launch per group of at
+most 64, each writing its channel slice of one output (output channels are
+independent, so this is exact). The weight-gradient kernel is a split
+reduction over pixels in two deterministic passes (design notes in the
+sources).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +51,9 @@ from pggan_tpu_torch.ops import _build
 
 K_TIERS = (8, 16, 32, 64)
 _EPI_NONE, _EPI_ACT, _EPI_ACT_PN = 0, 1, 2
+# blocks the dw kernel's first pass aims for: 8 per SM of the H100
+_DW_TARGET_BLOCKS = 8 * 132
+_DW_COLS = 128  # columns of one dw block tile (csrc/conv3x3_dw.cu kTW)
 
 
 def k_tier(k: int) -> int:
@@ -41,8 +62,8 @@ def k_tier(k: int) -> int:
     for t in K_TIERS:
         if k <= t:
             return t
-    raise ValueError(f"the conv kernels take at most {K_TIERS[-1]} output "
-                     f"channels, got {k}")
+    raise ValueError(f"one launch of the conv kernel takes at most "
+                     f"{K_TIERS[-1]} output channels, got {k}")
 
 
 def pad_out_channels(t: torch.Tensor, kt: int) -> torch.Tensor:
@@ -56,12 +77,20 @@ def pad_out_channels(t: torch.Tensor, kt: int) -> torch.Tensor:
     return out
 
 
-def supported(x_nhcw_shape, w_shape) -> bool:
+def supported(x_nhcw_shape, w_shape, pixelnorm: bool = False) -> bool:
     """Can the CUDA kernel take this shape? Any H, W and C; a 3x3 kernel
-    over the same C; at most 64 output channels (one register tile)."""
+    over the same C; any K without pixelnorm (groups of 64), at most 64 with
+    it (the mean over K stays in one thread)."""
     _n, _h, c, _w = x_nhcw_shape
     kh, kw, wc, k = w_shape
-    return (kh, kw) == (3, 3) and wc == c and 1 <= k <= K_TIERS[-1]
+    k_max = K_TIERS[-1] if pixelnorm else math.inf
+    return (kh, kw) == (3, 3) and wc == c and 1 <= k <= k_max
+
+
+def flip_io(w: torch.Tensor) -> torch.Tensor:
+    """Spatially flipped, in/out-swapped weights (``pallas_conv.py:484``):
+    ``conv3x3(ct, flip_io(w))`` is the input gradient of ``conv3x3(x, w)``."""
+    return w.flip(0, 1).transpose(2, 3).contiguous()
 
 
 # -- plain PyTorch versions (the CPU route and the kernels' references) -----
@@ -86,60 +115,246 @@ def conv3x3_act_pn_plain(x, w, b, *, slope: float, eps: float = 1e-8):
     return z * r[:, :, None, :], r
 
 
-# -- the kernel wrappers ----------------------------------------------------
+def conv3x3_dw_plain(x: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
+    """Nine shifted-slice contractions (``pallas_conv.py:431-454``,
+    ``_dw_einsum``): for row offset ``du = u - 1`` the cotangent rows
+    ``[max(0, -du), H - max(0, du))`` meet x rows ``[max(0, du),
+    H + min(0, du))``, and likewise for columns; the zero padding adds
+    nothing."""
+    n, h, c, w = x.shape
+    k = ct.shape[2]
+    taps = []
+    for u in range(3):
+        du = u - 1
+        xr0, cr0, rows = max(0, du), max(0, -du), max(0, h - abs(du))
+        for v in range(3):
+            dv = v - 1
+            xc0, cc0, cols = max(0, dv), max(0, -dv), max(0, w - abs(dv))
+            xs = x[:, xr0:xr0 + rows, :, xc0:xc0 + cols]
+            cs = ct[:, cr0:cr0 + rows, :, cc0:cc0 + cols]
+            taps.append(torch.einsum("nhcw,nhkw->ck", xs, cs))
+    return torch.stack(taps).reshape(3, 3, c, k)
 
-def _check(x, w, b=None):
+
+# -- the kernel routes --------------------------------------------------------
+
+def _check(x, w, b=None, pixelnorm=False):
     """What the kernel takes, checked on both routes so that the CPU tests
     hold callers to the same contract."""
     tensors = (x, w) if b is None else (x, w, b)
-    _build.forbid_grad(*tensors)
-    if x.ndim != 4 or w.ndim != 4 or not supported(x.shape, w.shape):
+    if (x.ndim != 4 or w.ndim != 4
+            or not supported(x.shape, w.shape, pixelnorm)):
         raise ValueError(f"conv3x3 kernel cannot take x {tuple(x.shape)}, "
-                         f"w {tuple(w.shape)}")
+                         f"w {tuple(w.shape)}"
+                         + (" with pixelnorm" if pixelnorm else ""))
     if b is not None and tuple(b.shape) != (w.shape[3],):
         raise ValueError(f"bias {tuple(b.shape)} for {w.shape[3]} channels")
     _build.check_kernel_inputs(*tensors)
 
 
 def _launch(name, epi, x, w, b, slope, eps):
+    """One output, one launch per group of at most 64 output channels."""
     n, h, c, wd = x.shape
     k = w.shape[3]
-    kt = k_tier(k)
-    wp = pad_out_channels(w, kt)
-    bp = pad_out_channels(b, kt) if b is not None else None
     y = torch.empty((n, h, k, wd), dtype=x.dtype, device=x.device)
     r = (torch.empty((n, h, wd), dtype=x.dtype, device=x.device)
          if epi == _EPI_ACT_PN else None)
-    if y.numel():
+    if not y.numel():
+        return y, r
+    for k0 in range(0, k, K_TIERS[-1]):
+        kg = min(K_TIERS[-1], k - k0)
+        kt = k_tier(kg)
+        wp = pad_out_channels(w[..., k0:k0 + kg], kt)
+        bp = pad_out_channels(b[k0:k0 + kg], kt) if b is not None else None
         _build.launch(name, "pggan_conv3x3", x.data_ptr(), wp.data_ptr(),
-                      None if bp is None else bp.data_ptr(), y.data_ptr(),
+                      None if bp is None else bp.data_ptr(),
+                      y.data_ptr() + k0 * wd * y.element_size(),
                       None if r is None else r.data_ptr(),
-                      n, h, c, wd, k, kt, epi, float(slope), float(eps))
+                      n, h, c, wd, kg, k, kt, epi, float(slope), float(eps))
     return y, r
 
 
-def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Same-padding 3x3 conv, (N, H, C, W) x (3, 3, C, K) -> (N, H, K, W)."""
+def _conv_fwd(x, w):
     _check(x, w)
     if _build.use_plain(x):
         return conv3x3_plain(x, w)
     return _launch("conv3x3", _EPI_NONE, x, w, None, 0.0, 0.0)[0]
 
 
-def conv3x3_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
-                slope: float) -> torch.Tensor:
-    """Fused ``leaky_relu(conv3x3(x, w) + b, slope)``."""
+def _act_fwd(x, w, b, slope):
     _check(x, w, b)
     if _build.use_plain(x):
         return conv3x3_act_plain(x, w, b, slope=slope)
     return _launch("conv3x3_act", _EPI_ACT, x, w, b, slope, 0.0)[0]
 
 
+def _act_pn_fwd(x, w, b, slope, eps):
+    _check(x, w, b, pixelnorm=True)
+    if _build.use_plain(x):
+        return conv3x3_act_pn_plain(x, w, b, slope=slope, eps=eps)
+    return _launch("conv3x3_act_pn", _EPI_ACT_PN, x, w, b, slope, eps)
+
+
+def _dw_plan(n, h, c, w, k):
+    """The dw kernel's k tile, image rows per block and number of partial
+    sums P: enough blocks to fill the card, each over whole rows of one
+    128-column tile."""
+    kt = 8 if k <= 8 else 16 if k <= 16 else 32
+    col_tiles = -(-w // _DW_COLS)
+    tiles = -(-c // 8) * -(-k // kt) * col_tiles
+    rows = n * h
+    chunks = min(rows, max(1, -(-_DW_TARGET_BLOCKS // tiles)))
+    rows_per_block = -(-rows // chunks)
+    return kt, rows_per_block, -(-rows // rows_per_block) * col_tiles
+
+
+def _dw_fwd(x, ct):
+    if x.ndim != 4 or ct.ndim != 4 or (
+            (ct.shape[0], ct.shape[1], ct.shape[3])
+            != (x.shape[0], x.shape[1], x.shape[3])):
+        raise ValueError(f"conv3x3_dw kernel cannot take x {tuple(x.shape)}, "
+                         f"ct {tuple(ct.shape)}")
+    _build.check_kernel_inputs(x, ct)
+    if _build.use_plain(x):
+        return conv3x3_dw_plain(x, ct)
+    n, h, c, wd = x.shape
+    k = ct.shape[2]
+    dw = torch.empty((3, 3, c, k), dtype=x.dtype, device=x.device)
+    if not dw.numel():
+        return dw
+    if not x.numel():
+        return dw.zero_()
+    kt, rows_per_block, parts = _dw_plan(n, h, c, wd, k)
+    ws = torch.empty((parts, 9, c, k), dtype=x.dtype, device=x.device)
+    _build.launch("conv3x3_dw", "pggan_conv3x3_dw", x.data_ptr(),
+                  ct.data_ptr(), ws.data_ptr(), dw.data_ptr(), n, h, c, wd, k,
+                  kt, rows_per_block, parts)
+    return dw
+
+
+# -- autograd -------------------------------------------------------------------
+
+def _mask(g, o, slope):
+    """The leaky ReLU's derivative applied to ``g``, from the sign of the
+    output (``pallas_conv.py:601-608``): sign(o) == sign(z) for slope > 0."""
+    return torch.where(o >= 0, g, g * slope)
+
+
+def _conv_grads(ctx, x, w, gy, bias: bool):
+    """gx, gw (and gb) of ``conv3x3(x, w) (+ b)`` for output cotangent gy,
+    skipping the inputs that need no gradient."""
+    need = ctx.needs_input_grad
+    gy = gy.contiguous()
+    gx = conv3x3(gy, flip_io(w)) if need[0] else None
+    gw = conv3x3_dw(x, gy) if need[1] else None
+    if not bias:
+        return gx, gw
+    return gx, gw, (gy.sum((0, 1, 3)) if need[2] else None)
+
+
+class _Conv3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _conv_fwd(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        return _conv_grads(ctx, x, w, g, bias=False)
+
+
+class _Conv3x3Dw(torch.autograd.Function):
+    # bilinear in (x, ct); its transposes are convs of the other operand
+    # with the weight cotangent cw (pallas_conv.py:525-560)
+    @staticmethod
+    def forward(ctx, x, ct):
+        ctx.save_for_backward(x, ct)
+        return _dw_fwd(x, ct)
+
+    @staticmethod
+    def backward(ctx, cw):
+        x, ct = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        cw = cw.contiguous()
+        gx = conv3x3(ct, flip_io(cw)) if need[0] else None
+        gct = conv3x3(x, cw) if need[1] else None
+        return gx, gct
+
+
+class _Conv3x3Act(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b, slope):
+        o = _act_fwd(x, w, b, slope)
+        ctx.slope = slope
+        ctx.save_for_backward(x, w, o)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, o = ctx.saved_tensors
+        gy = _mask(g, o, ctx.slope)
+        return (*_conv_grads(ctx, x, w, gy, bias=True), None)
+
+
+class _Conv3x3ActPn(torch.autograd.Function):
+    # With z = lrelu(conv(x, w) + b), o = z r and r = (mean_K z^2 + eps)^-1/2,
+    # the JAX rule's tangents (pallas_conv.py:668-681) are
+    #   s = mean_K(o tz),  to = r (tz - o s),  tr = -r^2 s.
+    # Transposing, for cotangents go (N, H, K, W) and gr (N, H, W):
+    #   <go, to> + <gr, tr>
+    #     = sum_K tz [r go] - sum_pixels s [r sum_K(o go) + gr r^2]
+    #     = sum_K tz [r go - (o / K)(r sum_K(o go) + gr r^2)],
+    # so gz = r (go - o mean_K(o go)) - gr r^2 o / K, then gy = mask(o) gz.
+    # A None cotangent (an output nobody used) drops its term.
+    @staticmethod
+    def forward(ctx, x, w, b, slope, eps):
+        o, r = _act_pn_fwd(x, w, b, slope, eps)
+        ctx.slope = slope
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, w, o, r)
+        return o, r
+
+    @staticmethod
+    def backward(ctx, go, gr):
+        x, w, o, r = ctx.saved_tensors
+        rb = r[:, :, None, :]
+        gz = None
+        if go is not None:
+            gz = rb * (go - o * torch.mean(o * go, dim=2, keepdim=True))
+        if gr is not None:
+            t = gr[:, :, None, :] * (rb * rb) * o / o.shape[2]
+            gz = -t if gz is None else gz - t
+        if gz is None:
+            return None, None, None, None, None
+        gy = _mask(gz, o, ctx.slope)
+        return (*_conv_grads(ctx, x, w, gy, bias=True), None, None)
+
+
+def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Same-padding 3x3 conv, (N, H, C, W) x (3, 3, C, K) -> (N, H, K, W)."""
+    return _Conv3x3.apply(x, w)
+
+
+def conv3x3_dw(x: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
+    """Weight gradient of the 3x3 conv: (N, H, C, W) x (N, H, K, W) ->
+    (3, 3, C, K)."""
+    return _Conv3x3Dw.apply(x, ct)
+
+
+def conv3x3_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
+                slope: float) -> torch.Tensor:
+    """Fused ``leaky_relu(conv3x3(x, w) + b, slope)``; slope > 0 (the
+    backward takes the mask from the output's sign)."""
+    if not slope > 0:
+        raise ValueError(f"the fused epilogue needs a leaky slope, got {slope}")
+    return _Conv3x3Act.apply(x, w, b, float(slope))
+
+
 def conv3x3_act_pn(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                    slope: float, eps: float = 1e-8):
     """Fused ``pixelnorm(leaky_relu(conv3x3(x, w) + b))`` over K; returns
     ``(o, r)`` with ``r = rsqrt(mean_K(z^2) + eps)``, shape (N, H, W)."""
-    _check(x, w, b)
-    if _build.use_plain(x):
-        return conv3x3_act_pn_plain(x, w, b, slope=slope, eps=eps)
-    return _launch("conv3x3_act_pn", _EPI_ACT_PN, x, w, b, slope, eps)
+    if not slope > 0:
+        raise ValueError(f"the fused epilogue needs a leaky slope, got {slope}")
+    return _Conv3x3ActPn.apply(x, w, b, float(slope), float(eps))

@@ -1,4 +1,4 @@
-"""Core PGGAN math primitives on NCHW tensors: the generator's share of
+"""Core PGGAN math primitives on NCHW tensors: the counterpart of
 ``pggan_tpu/ops/primitives.py``.
 
 Semantics follow the JAX package (reference network.py:7-41): equalized-LR
@@ -6,8 +6,9 @@ convolution with the static He constant ``sqrt(2 / fan_in)`` folded into
 the weight at use, bias -> (leaky) ReLU -> optional pixelnorm over the
 channel axis. The low-resolution stages run these as ``F.conv2d`` /
 ``F.conv_transpose2d``: the JAX package ran them as XLA convolutions, never
-as Pallas kernels. Weights are stored OIHW (PyTorch's layout);
-``pggan_tpu_torch.checkpoint`` converts to and from the JAX package's HWIO.
+as Pallas kernels. Weights are stored OIHW (PyTorch's layout) and the dense
+weight (out, in) as ``F.linear`` takes it; ``pggan_tpu_torch.checkpoint``
+converts to and from the JAX package's HWIO and (in, out).
 """
 
 from __future__ import annotations
@@ -39,11 +40,36 @@ def pixelnorm(x: torch.Tensor, eps: float = 1e-8, dim: int = 1) -> torch.Tensor:
     return x * torch.rsqrt(torch.mean(x * x, dim=dim, keepdim=True) + eps)
 
 
+def minibatch_stddev(x: torch.Tensor, eps: float = 1e-8,
+                     groups: int = 1) -> torch.Tensor:
+    """Append one channel (NCHW dim 1) holding the scalar stddev
+    ``sqrt(mean((x - mean(x))^2) + eps)`` of the whole activation tensor
+    (reference network.py:174-187). ``groups > 1`` takes the statistic over
+    each of ``groups`` equal batch slices, exactly as ``groups`` separate
+    calls would (``pggan_tpu/ops/primitives.py:62-93``)."""
+    n = x.shape[0]
+    if n % groups:
+        raise ValueError(f"batch {n} does not split into {groups} groups")
+    xg = x.reshape(groups, -1)
+    mean = xg.mean(dim=1, keepdim=True)
+    s = torch.sqrt(torch.mean(torch.square(xg - mean), dim=1) + eps)
+    tile = s.repeat_interleave(n // groups).reshape(n, 1, 1, 1)
+    tile = tile.expand(n, 1, x.shape[2], x.shape[3])
+    return torch.cat([x, tile], dim=1)
+
+
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2x spatial upsample, NCHW (reference
     network.py:127)."""
     from pggan_tpu_torch.ops.resample import upsample_2x
     return upsample_2x(x, h_axis=2, w_axis=3)
+
+
+def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
+    """2x2 stride-2 average pool, NCHW (``F.avg_pool2d(h, 2)``, reference
+    network.py:229), on the pool kernel for a CUDA tensor."""
+    from pggan_tpu_torch.ops.resample import avg_pool_2x as pool
+    return pool(x, h_axis=2, w_axis=3)
 
 
 def conv_init(generator: torch.Generator, ksize: int, ch_in: int, ch_out: int,
@@ -65,6 +91,21 @@ def conv_init(generator: torch.Generator, ksize: int, ch_in: int, ch_out: int,
         w = torch.rand(shape, generator=generator) * (2 * bound) - bound
     b = torch.rand((ch_out,), generator=generator) * (2 * bound) - bound
     return {"w": w.to(device), "b": b.to(device)}
+
+
+def dense_init(generator: torch.Generator, ch_in: int, ch_out: int,
+               device=None) -> dict:
+    """torch ``nn.Linear``'s default init, uniform ``+-1/sqrt(ch_in)``
+    (reference network.py:219): ``{"w": (ch_out, ch_in), "b": (ch_out,)}``."""
+    bound = 1.0 / math.sqrt(ch_in)
+    w = torch.rand((ch_out, ch_in), generator=generator) * (2 * bound) - bound
+    b = torch.rand((ch_out,), generator=generator) * (2 * bound) - bound
+    return {"w": w.to(device), "b": b.to(device)}
+
+
+def equalized_dense(params, x: torch.Tensor) -> torch.Tensor:
+    """The final D layer: a plain linear layer (no equalized-LR scale)."""
+    return F.linear(x, params["w"], params["b"])
 
 
 def _epilogue(y, b, act, use_pixelnorm, eps):
@@ -124,4 +165,21 @@ def equalized_conv2d_up2x(params, x: torch.Tensor, *, wscale: bool = True,
         w = w * he_constant(9 * w.shape[1])
     k = _superpose_up(w).flip(2, 3).transpose(0, 1)  # (C, K, 4, 4)
     y = F.conv_transpose2d(x, k, stride=2, padding=1)
+    return _epilogue(y, params["b"], act, use_pixelnorm, eps)
+
+
+def equalized_conv2d_pool_in(params, x: torch.Tensor, *, wscale: bool = True,
+                             act: str | None = "lrelu",
+                             use_pixelnorm: bool = False,
+                             eps: float = 1e-8) -> torch.Tensor:
+    """Fused ``2x2 avg-pool -> 1x1 equalized conv``, NCHW: a stride-2 2x2
+    conv with the 1x1 weight spread at weight/4, so the pooled input is
+    never made (the D fade path ``fromRGB(avg_pool2d(x))``, reference
+    network.py:231-232; ``pggan_tpu/ops/primitives.py:274-302``)."""
+    w = params["w"]
+    assert w.shape[2:] == (1, 1), "pool-in fusion is for 1x1 convs"
+    if wscale:
+        w = w * he_constant(w.shape[1])
+    k = (w * 0.25).expand(-1, -1, 2, 2).contiguous()
+    y = F.conv2d(x, k, stride=2)
     return _epilogue(y, params["b"], act, use_pixelnorm, eps)

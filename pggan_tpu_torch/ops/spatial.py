@@ -1,10 +1,12 @@
-"""NHCW building blocks of the generator's high-resolution tail: the
-counterpart of ``pggan_tpu/ops/spatial.py``.
+"""NHCW building blocks of the generator's high-resolution tail and the
+discriminator's high-resolution head: the counterpart of
+``pggan_tpu/ops/spatial.py``.
 
-The tail keeps (N, H, C, W) end to end. Its 3x3 convs, the fused conv
-pair and the 2x upsample run on the hand-written CUDA kernels for a CUDA
-tensor (``conv3x3``, ``conv_chain``, ``resample``); the 1x1 toRGB conv is a
-plain channel einsum, as in the JAX package. Semantics follow
+The tail and the head keep (N, H, C, W) end to end. Their 3x3 convs, the
+fused conv pair, the 2x upsample and the 2x2 pool run on the hand-written
+CUDA kernels for a CUDA tensor (``conv3x3``, ``conv_chain``, ``resample``);
+the 1x1 toRGB / fromRGB conv is a plain channel einsum, as in the JAX
+package. Everything but the conv pair is differentiable to any order. Semantics follow
 ``pggan_tpu_torch/ops/primitives.py``: equalized-LR scaling folded into the
 weight, bias -> (leaky) ReLU -> optional pixelnorm over the channel axis.
 
@@ -19,6 +21,7 @@ import torch
 from pggan_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_act, conv3x3_act_pn
 from pggan_tpu_torch.ops.conv_chain import chain_supported, conv3x3_chain
 from pggan_tpu_torch.ops.primitives import he_constant, leaky_relu
+from pggan_tpu_torch.ops.resample import avg_pool_2x as _avg_pool_2x
 from pggan_tpu_torch.ops.resample import upsample_2x
 
 # Which stages run NHCW at all: the JAX package's envelope with the same
@@ -114,3 +117,8 @@ def chain_pair_supported(x_shape, p1, p2) -> bool:
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest 2x upsample, NHCW."""
     return upsample_2x(x, h_axis=1, w_axis=3)
+
+
+def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
+    """2x2 stride-2 average pool, NHCW."""
+    return _avg_pool_2x(x, h_axis=1, w_axis=3)
