@@ -6,7 +6,8 @@ paper-configuration snapshot through ``pggan_tpu_torch.cli.generate`` and
 checks what comes out against the same model run on the CPU, then trains
 the paper configuration for a few WGAN-GP steps at depth 8, holds every
 kernel against its plain version at every shape one train step gives it,
-and holds a depth-6 train step against the same step on the CPU.
+holds a depth-6 train step against the same step on the CPU, and profiles
+warm depth-8 train steps (device time by kernel, device busy share).
 
     python3 chip_smoke.py
 
@@ -20,6 +21,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -33,6 +35,13 @@ TRAIN_BATCH = 3  # the paper's minibatch at depth 8 (schedule.py:15)
 CHECK_DEPTH = 6  # 256 px: the card-vs-CPU step
 LR = 1e-3
 CONV_TOL = dict(rtol=1e-4, atol=1e-5)  # same math, f32 sums in another order
+# The conv family and the weight gradient are held against their plain
+# versions evaluated in float64 on the same inputs. Against float64, the
+# f32 plain version (cuDNN) is off by up to 2.1e-5 at pixelnorm's 1024 px
+# serve shape, where the kernel is off by 1.5e-5 (this script's phase 3 on
+# an H100), so comparing the kernel with the f32 plain version would
+# measure mostly the plain version's own rounding; the f32 plain version's
+# error is printed beside.
 # the weight gradient sums over up to 6.3 M pixels: rtol 1e-4 and an
 # absolute bar of 1e-5 times the largest element (a small element keeps
 # the absolute error of the large sums)
@@ -73,6 +82,13 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "avgpool2x": ("pggan_tpu_torch/csrc/avgpool2x.cu",
                   "pggan_tpu/ops/pallas_resample.py:110"),
 }
+# The card's published peaks for the bounds (NVIDIA H100 SXM data sheet,
+# dense, at its 700 W limit): memory 3.35 TB/s; f32 products on the tensor
+# cores as three TF32 products (495 / 3 TFLOP/s), the kernels' arithmetic;
+# f32 FMAs outside them 67 TFLOP/s, printed beside it.
+HBM_BYTES_PER_S = 3.35e12
+TF32X3_FLOP_PER_S = 495e12 / 3
+FMA_FLOP_PER_S = 67e12
 SERVE_ONLY = ("conv3x3_chain", "conv3x3_chain_pn")
 SERVE_KERNELS = ("upsample2x", "conv3x3", "conv3x3_act", "conv3x3_act_pn",
                  *SERVE_ONLY)
@@ -81,6 +97,68 @@ TRAIN_KERNELS = tuple(k for k in KERNELS if k not in SERVE_ONLY)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def work(name: str, sig) -> tuple:
+    """(FLOPs, bytes) of one call of kernel ``name`` with call signature
+    ``sig`` (its arguments, tensors as shapes, as ``CallLog`` records
+    them): a multiply-add counts two FLOPs, and each f32 input is read
+    once and each output written once."""
+    shapes = [a for a in sig if isinstance(a, tuple)]
+    read = sum(math.prod(s) for s in shapes)
+    if name in ("conv3x3", "conv3x3_act", "conv3x3_act_pn"):
+        (n, h, c, w), k = shapes[0], shapes[1][3]
+        out = n * h * k * w + (n * h * w if name == "conv3x3_act_pn" else 0)
+        return 2 * n * h * w * 9 * c * k, 4 * (read + out)
+    if name == "conv3x3_dw":
+        (n, h, c, w), k = shapes[0], shapes[1][2]
+        return 2 * n * h * w * 9 * c * k, 4 * (read + 9 * c * k)
+    if name in SERVE_ONLY:
+        (n, h, c, w), k1, k2 = shapes[0], shapes[1][3], shapes[3][3]
+        return (2 * n * h * w * 9 * (c * k1 + k1 * k2),
+                4 * (read + n * h * k2 * w))
+    if name == "avgpool2x":
+        return 0, 4 * (read + read // 4)
+    if name == "upsample2x":
+        return 0, 4 * (read + 4 * read)
+    raise KeyError(name)
+
+
+def bounds(flops: float, nbytes: float) -> tuple:
+    """The least time (ms) the card could take for this work: the larger of
+    bytes over the memory rate and FLOPs over the three-product TF32 rate;
+    which of the two it is; and the f32 FMA bound (ms) beside it."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / TF32X3_FLOP_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations",
+            flops / FMA_FLOP_PER_S * 1e3)
+
+
+def library_call(torch, name, args):
+    """One PyTorch call that computes the same function as kernel ``name``
+    on ``args``, on NCHW-contiguous copies (TF32 off): the yardstick beside
+    the kernel, which the port never calls. None where there is no such
+    call (the fused epilogues and the chain)."""
+    F = torch.nn.functional
+    nchw = lambda t: t.permute(0, 2, 1, 3).contiguous()  # noqa: E731
+    if name == "conv3x3":
+        x, w = nchw(args[0]), args[1].permute(3, 2, 0, 1).contiguous()
+        return lambda: F.conv2d(x, w, padding=1)
+    if name == "conv3x3_dw":
+        x, ct = nchw(args[0]), nchw(args[1])
+        w = torch.empty((ct.shape[1], x.shape[1], 3, 3), device=x.device)
+        return lambda: torch.ops.aten.convolution_backward(
+            ct, x, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+            [False, True, False])
+    if name in ("avgpool2x", "upsample2x"):
+        t, h_axis, _w_axis = args
+        h, w = t.shape[h_axis], t.shape[-1]
+        x = t.movedim(h_axis, -2).reshape(1, -1, h, w).contiguous()
+        if name == "avgpool2x":
+            return lambda: F.avg_pool2d(x, 2)
+        return lambda: F.interpolate(x, scale_factor=2, mode="nearest")
+    return None
 
 
 def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
@@ -107,78 +185,108 @@ class KernelChecks:
     def __init__(self, torch):
         self.torch = torch
         self.gen = torch.Generator(device="cuda").manual_seed(SEED)
-        # per kernel mode: max |kernel - plain|, and ms summed over the
-        # shapes one depth-8 serve forward runs (ragged checks are not
-        # timed); train_ms / train_plain_ms: summed over the calls of one
-        # depth-8 train step (train_shapes)
+        # per kernel mode: max |kernel - plain|; and sums["serve"] /
+        # sums["train"] of kernel, plain and library ms, and of the bounds,
+        # over the shapes one depth-8 serve forward runs (ragged checks are
+        # not timed) / over the calls of one depth-8 train step
+        # (train_shapes)
         self.err = {k: 0.0 for k in KERNELS}
-        self.ms = {k: 0.0 for k in KERNELS}
-        self.plain_ms = {k: 0.0 for k in KERNELS}
-        self.train_ms = {k: 0.0 for k in KERNELS}
-        self.train_plain_ms = {k: 0.0 for k in KERNELS}
+        self.sums = {per: {k: collections.Counter() for k in KERNELS}
+                     for per in ("serve", "train")}
 
     def rand(self, *shape, scale=1.0):
         return self.torch.randn(*shape, device="cuda",
                                 generator=self.gen) * scale
 
+    @staticmethod
+    def f64(fn, *args):
+        """``fn`` (a plain version) on float64 copies of ``args``."""
+        return lambda: fn(*(a.double() if hasattr(a, "double") else a
+                            for a in args))
+
     def check(self, name, label, kernel, plain, exact=False, timed=True,
-              tol=None, count=None):
+              tol=None, count=None, args=None, reference=None):
         """Kernel against plain: exactly, or within ``tol`` (CONV_TOL by
         default; ``scaled_atol`` scales the absolute bar to the plain
-        output's largest element). Timed calls add to the serve sums, or,
-        with ``count``, ``count`` times to the train-step sums."""
+        output's largest element); against ``reference`` (the plain
+        version in float64) instead where it is given. Timed calls add to
+        the serve sums, or, with ``count``, ``count`` times to the
+        train-step sums; with the call's ``args`` the library call and the
+        bounds are added too."""
         torch = self.torch
         base = CONV_TOL if tol is None else tol
-        got, want = kernel(), plain()
+        as_tuple = lambda v: v if isinstance(v, tuple) else (v,)  # noqa: E731
+        got, want = as_tuple(kernel()), as_tuple(plain())
+        ref = as_tuple(reference()) if reference is not None else want
         torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        for g, w in zip(got, want):
-            if g.shape != w.shape:
+        plain_err = 0.0
+        for g, w, r in zip(got, want, ref):
+            if g.shape != r.shape:
                 raise AssertionError(f"{name} {label}: shape {tuple(g.shape)}"
-                                     f" != {tuple(w.shape)}")
-            err = float((g - w).abs().max()) if g.numel() else 0.0
+                                     f" != {tuple(r.shape)}")
+            if not g.numel():
+                continue
+            g = g.to(r.dtype)
+            err = float((g - r).abs().max())
             self.err[name] = max(self.err[name], err)
+            if reference is not None:
+                plain_err = max(plain_err,
+                                float((w.to(r.dtype) - r).abs().max()))
             tol = base
             if "scaled_atol" in base:
-                scale = float(w.abs().max()) if w.numel() else 0.0
-                tol = dict(rtol=base["rtol"],
-                           atol=base["scaled_atol"] * max(scale, 1e-30))
-            ok = (torch.equal(g, w) if exact
-                  else torch.allclose(g, w, **tol))
+                tol = dict(rtol=base["rtol"], atol=base["scaled_atol"]
+                           * max(float(r.abs().max()), 1e-30))
+            ok = (torch.equal(g, r) if exact
+                  else torch.allclose(g, r, **tol))
             if not ok:
                 raise AssertionError(f"{name} {label}: max abs err {err} "
                                      f"outside {'exact' if exact else tol}")
         line = f"  {name:17s} {label:34s} max_abs_err {self.err[name]:.3e}"
-        if timed:
-            reps = 10 if count is None else 5
-            t_k = time_ms(torch, kernel, reps=reps)
-            t_p = time_ms(torch, plain, reps=reps)
-            if count is None:
-                self.ms[name] += t_k
-                self.plain_ms[name] += t_p
-            else:
-                self.train_ms[name] += count * t_k
-                self.train_plain_ms[name] += count * t_p
-                line += f"  x{count}"
-            line += f"  kernel {t_k:.3f} ms  plain {t_p:.3f} ms"
+        if reference is not None:
+            line += f" (vs f64; f32 plain {plain_err:.3e})"
+        if not timed:
             log(line)
-            return t_k, t_p
+            return None
+        reps = 10 if count is None else 5
+        t = {"ms": time_ms(torch, kernel, reps=reps),
+             "plain_ms": time_ms(torch, plain, reps=reps)}
+        line += (f"  x{count or 1}  kernel {t['ms']:.3f} ms  plain "
+                 f"{t['plain_ms']:.3f} ms")
+        if args is not None:
+            lib = library_call(torch, name, args)
+            if lib is not None:
+                t["library_ms"] = time_ms(torch, lib, reps=reps)
+            sig = tuple(tuple(a.shape) if isinstance(a, torch.Tensor) else a
+                        for a in args)
+            flops, nbytes = work(name, sig)
+            t["bound_ms"], by, t["fma_bound_ms"] = bounds(flops, nbytes)
+            t[f"{by}_bound_ms"] = t["bound_ms"]
+            line += ("  library " + (f"{t['library_ms']:.3f} ms"
+                                     if lib is not None else "none")
+                     + f"  bound {t['bound_ms']:.3f} ms ({by}; "
+                     f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)  "
+                     f"f32 FMA bound {t['fma_bound_ms']:.3f} ms")
+        sums = self.sums["serve" if count is None else "train"][name]
+        for key, v in t.items():
+            sums[key] += (count or 1) * v
         log(line)
-        return None
+        return t["ms"], t["plain_ms"]
 
     def conv_modes(self, x, w, b, label, timed=True):
         from pggan_tpu_torch.ops import conv3x3 as C
-        self.check("conv3x3", label, lambda: C.conv3x3(x, w),
-                   lambda: C.conv3x3_plain(x, w), timed=timed)
-        self.check("conv3x3_act", label,
-                   lambda: C.conv3x3_act(x, w, b, slope=0.2),
-                   lambda: C.conv3x3_act_plain(x, w, b, slope=0.2),
-                   timed=timed)
-        self.check("conv3x3_act_pn", label,
-                   lambda: C.conv3x3_act_pn(x, w, b, slope=0.2, eps=1e-8),
-                   lambda: C.conv3x3_act_pn_plain(x, w, b, slope=0.2,
-                                                  eps=1e-8), timed=timed)
+        plain = plain_versions()
+        kernels = {"conv3x3": C.conv3x3,
+                   "conv3x3_act": lambda x, w, b, s: C.conv3x3_act(
+                       x, w, b, slope=s),
+                   "conv3x3_act_pn": lambda x, w, b, s, e: C.conv3x3_act_pn(
+                       x, w, b, slope=s, eps=e)}
+        for name, args in (("conv3x3", (x, w)),
+                           ("conv3x3_act", (x, w, b, 0.2)),
+                           ("conv3x3_act_pn", (x, w, b, 0.2, 1e-8))):
+            self.check(name, label,
+                       lambda k=kernels[name], a=args: k(*a),
+                       lambda p=plain[name], a=args: p(*a), timed=timed,
+                       args=args, reference=self.f64(plain[name], *args))
 
     def chain_modes(self, x, w1, b1, w2, b2, label, timed=True):
         from pggan_tpu_torch.ops import conv_chain as CH
@@ -188,7 +296,7 @@ class KernelChecks:
                                                 pn_eps=pn),
                        lambda: CH.conv3x3_chain_plain(x, w1, b1, w2, b2,
                                                       slope=0.2, pn_eps=pn),
-                       timed=timed)
+                       timed=timed, args=(x, w1, b1, w2, b2))
 
     def layer(self, c, k):
         """He-scaled 3x3 weight (HWIO) and a small bias, as G's layers."""
@@ -203,7 +311,8 @@ class KernelChecks:
                 x = self.rand(*up_shape)
                 self.check("upsample2x", f"x {up_shape}",
                            lambda: R.upsample_2x(x, 1, 3),
-                           lambda: R.upsample2x_plain(x, 1, 3), exact=True)
+                           lambda: R.upsample2x_plain(x, 1, 3), exact=True,
+                           args=(x, 1, 3))
                 n, h, _c, w = up_shape
                 xs = self.rand(n, 2 * h, c, 2 * w)
                 w1, b1 = self.layer(c, k1)
@@ -240,7 +349,8 @@ class KernelChecks:
         self.check("conv3x3_dw", "ragged x (2, 37, 5, 45) K 7",
                    lambda: C.conv3x3_dw(x, ct),
                    lambda: C.conv3x3_dw_plain(x, ct), tol=DW_TOL,
-                   timed=False)
+                   timed=False,
+                   reference=self.f64(C.conv3x3_dw_plain, x, ct))
         x = self.rand(3, 38, 5, 46)
         self.check("avgpool2x", "ragged x (3, 38, 5, 46)",
                    lambda: R.avg_pool_2x(x, 1, 3),
@@ -251,27 +361,20 @@ class KernelChecks:
         self.check("conv3x3_act", "K 128: 64->128 at 128 px",
                    lambda: C.conv3x3_act(x, w, b, slope=0.2),
                    lambda: C.conv3x3_act_plain(x, w, b, slope=0.2),
-                   timed=False)
+                   timed=False, reference=self.f64(
+                       plain_versions()["conv3x3_act"], x, w, b, 0.2))
         self.check("conv3x3", "K 128: 64->128 at 128 px",
                    lambda: C.conv3x3(x, w), lambda: C.conv3x3_plain(x, w),
-                   timed=False)
+                   timed=False, reference=self.f64(C.conv3x3_plain, x, w))
 
     def train_shapes(self, calls, gp_dw):
         """Every kernel call of one depth-8 train step (``CallLog``), each
         distinct shape held against its plain version once and timed;
-        the times count as often as the step made the call. Returns the
-        kernel ms of the unused weight gradients inside the GP."""
-        from pggan_tpu_torch.ops import conv3x3 as C
-        from pggan_tpu_torch.ops import resample as R
+        the times count as often as the step made the call. The weight
+        gradient's two calls at each shape must agree bit for bit. Returns
+        the kernel ms of the unused weight gradients inside the GP."""
         torch = self.torch
-        plain = {"conv3x3": C.conv3x3_plain,
-                 "conv3x3_act": lambda x, w, b, s: C.conv3x3_act_plain(
-                     x, w, b, slope=s),
-                 "conv3x3_act_pn": lambda x, w, b, s, e:
-                     C.conv3x3_act_pn_plain(x, w, b, slope=s, eps=e),
-                 "conv3x3_dw": C.conv3x3_dw_plain,
-                 "avgpool2x": R.avgpool2x_plain,
-                 "upsample2x": R.upsample2x_plain}
+        plain = plain_versions()
         gp_ms = 0.0
         with torch.no_grad():
             for (name, sig), count in sorted(calls.items()):
@@ -284,17 +387,43 @@ class KernelChecks:
                     else:
                         args.append(a)
                 label = " ".join(str(a) for a in sig)
+                if name == "conv3x3_dw":
+                    first = CallLog.ORIGINAL[name](*args)
+                    if not torch.equal(first, CallLog.ORIGINAL[name](*args)):
+                        raise AssertionError(f"conv3x3_dw {label}: two calls"
+                                             f" differ")
+                    del first
                 t_k, _t_p = self.check(
                     name, label[:34],
                     lambda: CallLog.ORIGINAL[name](*args),
                     lambda: plain[name](*args),
                     exact=name in ("avgpool2x", "upsample2x"),
                     tol=DW_TOL if name == "conv3x3_dw" else None,
-                    count=count)
+                    count=count, args=args,
+                    reference=(self.f64(plain[name], *args)
+                               if name in F64_REFERENCE else None))
                 gp_ms += gp_dw.get((name, sig), 0) * t_k
                 del args
         torch.cuda.empty_cache()
         return gp_ms
+
+
+F64_REFERENCE = ("conv3x3", "conv3x3_act", "conv3x3_act_pn", "conv3x3_dw")
+
+
+def plain_versions():
+    """Each train-path kernel's plain version, with the kernel wrapper's
+    positional arguments (as ``CallLog`` records them)."""
+    from pggan_tpu_torch.ops import conv3x3 as C
+    from pggan_tpu_torch.ops import resample as R
+    return {"conv3x3": C.conv3x3_plain,
+            "conv3x3_act": lambda x, w, b, s: C.conv3x3_act_plain(
+                x, w, b, slope=s),
+            "conv3x3_act_pn": lambda x, w, b, s, e:
+                C.conv3x3_act_pn_plain(x, w, b, slope=s, eps=e),
+            "conv3x3_dw": C.conv3x3_dw_plain,
+            "avgpool2x": R.avgpool2x_plain,
+            "upsample2x": R.upsample2x_plain}
 
 
 class CallLog:
@@ -636,6 +765,78 @@ def step_against_cpu(torch, device="cuda"):
     return {"loss_rel_err": loss_err, "grad_err_over_max": worst}
 
 
+# device kernels by source, for the profile (first match wins)
+KERNEL_GROUPS = (
+    ("conv3x3 kernel", ("conv3x3_kernel", "split_weights")),
+    ("conv3x3_dw kernel", ("conv3x3_dw",)),
+    ("upsample / pool kernels", ("upsample2x", "avgpool2x")),
+    ("cuDNN / GEMM", ("cudnn", "gemm", "sm90_", "sm80_", "cutlass", "xmma",
+                      "convolve", "fft", "winograd", "dgrad", "wgrad")),
+    ("Adam (foreach)", ("foreach", "multi_tensor")),
+    ("reductions", ("reduce",)),
+    ("elementwise and copies", ("elementwise", "copy", "fill", "cat")),
+)
+
+
+def profile_phase(torch, steps: int = 2):
+    """``torch.profiler`` over ``steps`` warm depth-8 train steps of each
+    graph (fade, stable): device time summed by kernel name and group,
+    device busy share (the union of kernel intervals over the host window
+    of the synchronised steps), and launches."""
+    from torch.profiler import ProfilerActivity, profile
+    from pggan_tpu_torch.training import TrainStepBuilder, init_state
+    G, D = paper_models(torch, "cuda")
+    state, builder = init_state(G, D, seed=SEED), TrainStepBuilder(G, D)
+    prep = builder.prep_fn()
+    u8 = uint8_reals(torch, builder, TRAIN_DEPTH, SEED).cuda()
+    out = {}
+    for fade in (True, False):
+        alpha = 0.5 if fade else 1.0
+        step = builder.step_fn(TRAIN_DEPTH, TRAIN_BATCH, fade)
+        for _ in range(2):  # warm-up
+            step(state, prep(u8, alpha), alpha, LR, LR)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step(state, prep(u8, alpha), alpha, LR, LR)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        by_name = collections.Counter()
+        spans = []
+        for e in kernels:
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3
+            spans.append((e.time_range.start, e.time_range.end))
+        busy_us, end = 0.0, -math.inf
+        for a, b in sorted(spans):
+            if b > end:
+                busy_us += b - max(a, end)
+                end = b
+        groups = collections.Counter()
+        for name, ms in by_name.items():
+            group = next((g for g, keys in KERNEL_GROUPS
+                          if any(k in name for k in keys)), "other")
+            groups[group] += ms / steps
+        graph = "fade" if fade else "stable"
+        out[graph] = {
+            "wall_ms_per_step": wall_ms / steps,
+            "device_busy_ms_per_step": busy_us / 1e3 / steps,
+            "device_busy_share": busy_us / 1e3 / wall_ms,
+            "launches_per_step": len(kernels) / steps,
+            "ms_per_step_by_group": dict(groups.most_common()),
+            "top_kernels_ms_per_step": {
+                n: ms / steps for n, ms in by_name.most_common(12)}}
+        log(f"  {graph}: {wall_ms / steps:.1f} ms a step, device busy "
+            f"{busy_us / 1e3 / steps:.1f} ms ({busy_us / 1e3 / wall_ms:.1%})"
+            f", {len(kernels) / steps:.0f} launches")
+        for g, ms in groups.most_common():
+            log(f"    {g:24s} {ms:8.3f} ms")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -658,9 +859,13 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     log(f"phase 2: kernels built in {time.perf_counter() - t0:.1f} s")
+    for src, entries in _build.ptxas_report().items():
+        log(f"  {src}: " + ", ".join(f"{k} {r} regs" + (f" ({s} B spilled)"
+                                                     if s else "")
+                                     for k, (r, s) in entries.items()))
+    disable_tf32()
 
     # phase 3: kernels against their plain versions
-    disable_tf32()
     log(f"phase 3: kernels vs plain versions, depth-8 tail shapes, batch "
         f"{BATCH}, on {card}")
     checks = KernelChecks(torch)
@@ -698,22 +903,33 @@ def main() -> int:
     train[f"depth{CHECK_DEPTH}_vs_cpu"] = step_against_cpu(torch)
     log(f"phase 7 passed ({time.perf_counter() - t_start:.0f} s so far)")
 
-    # the result lines. ms / plain_ms: per depth-8 fade train step (batch
-    # 3) for the kernels the step runs, per depth-8 serve forward (batch
-    # 16) for the serve-only chain
+    # phase 8: where the device time of a depth-8 train step goes
+    log(f"phase 8: torch.profiler over warm depth-8 train steps, batch "
+        f"{TRAIN_BATCH}")
+    profile = profile_phase(torch)
+    log(f"phase 8 passed ({time.perf_counter() - t_start:.0f} s so far)")
+
+    # the result lines. ms, plain_ms, library_ms and the bounds: per
+    # depth-8 fade train step (batch 3) for the kernels the step runs, per
+    # depth-8 serve forward (batch 16) for the serve-only chain
     kernels = []
     for name, (src, rep) in KERNELS.items():
         per_step = name in TRAIN_KERNELS
+        t = checks.sums["train" if per_step else "serve"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches[name], "max_abs_err": checks.err[name],
-            "ms": (checks.train_ms if per_step else checks.ms)[name],
-            "plain_ms": (checks.train_plain_ms if per_step
-                         else checks.plain_ms)[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "library_ms": t["library_ms"] if "library_ms" in t else None,
+            "bound_ms": t["bound_ms"],
+            "bound_by": ("bytes" if t["bytes_bound_ms"]
+                         >= t["operations_bound_ms"] else "operations"),
+            "fma_bound_ms": t["fma_bound_ms"],
             "per": "train_step_depth8" if per_step else "serve_forward_depth8"})
     print(json.dumps({"serve": {"img_per_s": rate, "depth": 8,
                                 "batch": BATCH, "card": card_line}}))
     print(json.dumps({"train": {**train, "card": card_line}}))
+    print(json.dumps({"profile": {**profile, "card": card_line}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,6 +24,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -35,7 +36,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("conv3x3.cu", "conv3x3_dw.cu", "conv_chain.cu", "upsample2x.cu",
            "avgpool2x.cu")
-HEADERS = ("epilogue.cuh",)
+HEADERS = ("epilogue.cuh", "tf32_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,12 +46,13 @@ _SIGNATURES = {
     "pggan_upsample2x": (_P, _P, _I, _I, _I, _I, _P),
     # x, y, N, H, C, W, stream
     "pggan_avgpool2x": (_P, _P, _I, _I, _I, _I, _P),
-    # x, w, b, y, r, N, H, C, W, K, KY, KT, epi, slope, eps, stream
-    "pggan_conv3x3": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+    # x, w, b, y, r, ws, N, H, C, W, K, KT, epi, slope, eps, stream
+    "pggan_conv3x3": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       _F, _F, _P),
-    # x, ct, ws, dw, N, H, C, W, K, KT, rows_per_block, P, stream
+    # x, ct, ws, dw, N, H, C, W, K, KT, rows_per_block, row_chunks,
+    # col_tiles, stream
     "pggan_conv3x3_dw": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _P),
+                         _I, _P),
     # x, w1, b1, w2, b2, y, N, H, C, W, K1, K2, K1T, K2T, pn, slope, eps,
     # stream
     "pggan_conv3x3_chain": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -132,6 +134,39 @@ def library() -> ctypes.CDLL:
     lib.pggan_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib
+
+
+def _demangle(symbol: str) -> str:
+    """``_ZN<ns><name>I<args>E...`` -> ``name<args>`` for the kernels here
+    (anonymous namespace, integer template arguments)."""
+    rest, names = symbol[3:], []
+    while rest[:1].isdigit():
+        n = re.match(r"\d+", rest).group()
+        names.append(rest[len(n):len(n) + int(n)])
+        rest = rest[len(n) + int(n):]
+    targs = re.match(r"I((?:Li\d+E)+)E", rest)
+    args = re.findall(r"Li(\d+)E", targs.group(1)) if targs else []
+    return (names[-1] if names else symbol) + (
+        f"<{','.join(args)}>" if args else "")
+
+
+def ptxas_report() -> dict:
+    """Registers a thread and bytes spilled for each kernel of the built
+    library, from ptxas's report in the build logs: {source: {kernel:
+    (registers, spill store bytes)}}."""
+    report = {}
+    for name in SOURCES:
+        text = (BUILD_DIR / (name + ".log")).read_text()
+        entries = re.split(r"Compiling entry function '", text)[1:]
+        report[name] = {}
+        for entry in entries:
+            symbol = entry.split("'", 1)[0]
+            regs = re.search(r"Used (\d+) registers", entry)
+            spill = re.search(r"(\d+) bytes spill stores", entry)
+            report[name][_demangle(symbol)] = (
+                int(regs.group(1)) if regs else None,
+                int(spill.group(1)) if spill else 0)
+    return report
 
 
 def launch(name: str, fn: str, *args) -> None:

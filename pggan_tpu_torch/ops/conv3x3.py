@@ -29,15 +29,19 @@ epilogues take the activation mask from the sign of the output and close on
 pixelnorm's ``r``. A term whose input needs no gradient is skipped
 (``ctx.needs_input_grad``, fixed at forward time).
 
-The conv kernel is bound by f32 FMAs (18 C K FLOPs per output pixel, no
-TF32, for parity); a block stages a zero-padded halo tile of 8 input
-channels at a time in shared memory and keeps up to 64 outputs of its
-pixels in registers, so pixelnorm's mean never leaves a thread. Without
-pixelnorm, more than 64 output channels run as one launch per group of at
-most 64, each writing its channel slice of one output (output channels are
-independent, so this is exact). The weight-gradient kernel is a split
-reduction over pixels in two deterministic passes (design notes in the
-sources).
+Both kernels run on the H100's tensor cores: ``mma.sync`` m16n8k8 in TF32
+with each f32 operand split into two TF32 values, a = hi + lo, and each
+product taken as hi hi + hi lo + lo hi (``csrc/tf32_mma.cuh``). That keeps
+f32 accuracy (one TF32 product does not), at a third of the card's 495
+TFLOP/s TF32 rate where f32 FMAs give 67; the operands are staged with
+double-buffered ``cp.async`` copies. The conv is an implicit GEMM of
+output pixels by output channels, bound by operations at 128-256 px and by
+bytes at 512-1024 px; more than 64 output channels (no pixelnorm) run as
+groups of 64 in one launch's grid (output channels are independent, so
+this is exact), and with pixelnorm a pixel's K outputs stay in one quad of
+lanes. The weight gradient is the same GEMM transposed (taps x input
+channels by output channels, reduced over pixels), split over pixel slices
+in two deterministic passes. Design notes in the sources.
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ _EPI_NONE, _EPI_ACT, _EPI_ACT_PN = 0, 1, 2
 # blocks the dw kernel's first pass aims for: 8 per SM of the H100
 _DW_TARGET_BLOCKS = 8 * 132
 _DW_COLS = 128  # columns of one dw block tile (csrc/conv3x3_dw.cu kTW)
+_DW_MIN_ROWS = 8  # image rows a dw block walks, at least
 
 
 def k_tier(k: int) -> int:
@@ -80,7 +85,7 @@ def pad_out_channels(t: torch.Tensor, kt: int) -> torch.Tensor:
 def supported(x_nhcw_shape, w_shape, pixelnorm: bool = False) -> bool:
     """Can the CUDA kernel take this shape? Any H, W and C; a 3x3 kernel
     over the same C; any K without pixelnorm (groups of 64), at most 64 with
-    it (the mean over K stays in one thread)."""
+    it (the mean over K stays in one block)."""
     _n, _h, c, _w = x_nhcw_shape
     kh, kw, wc, k = w_shape
     k_max = K_TIERS[-1] if pixelnorm else math.inf
@@ -153,7 +158,8 @@ def _check(x, w, b=None, pixelnorm=False):
 
 
 def _launch(name, epi, x, w, b, slope, eps):
-    """One output, one launch per group of at most 64 output channels."""
+    """One launch; more than 64 output channels run as groups of 64 in its
+    grid (output channels are independent, so this is exact)."""
     n, h, c, wd = x.shape
     k = w.shape[3]
     y = torch.empty((n, h, k, wd), dtype=x.dtype, device=x.device)
@@ -161,16 +167,15 @@ def _launch(name, epi, x, w, b, slope, eps):
          if epi == _EPI_ACT_PN else None)
     if not y.numel():
         return y, r
-    for k0 in range(0, k, K_TIERS[-1]):
-        kg = min(K_TIERS[-1], k - k0)
-        kt = k_tier(kg)
-        wp = pad_out_channels(w[..., k0:k0 + kg], kt)
-        bp = pad_out_channels(b[k0:k0 + kg], kt) if b is not None else None
-        _build.launch(name, "pggan_conv3x3", x.data_ptr(), wp.data_ptr(),
-                      None if bp is None else bp.data_ptr(),
-                      y.data_ptr() + k0 * wd * y.element_size(),
-                      None if r is None else r.data_ptr(),
-                      n, h, c, wd, kg, k, kt, epi, float(slope), float(eps))
+    kt = k_tier(min(k, K_TIERS[-1]))
+    # scratch for the split weights: (groups, 9, C rounded up to 8, KT + 4,
+    # 2)
+    ws = torch.empty(-(-k // kt) * 9 * -(-c // 8) * 8 * (kt + 4) * 2,
+                     dtype=x.dtype, device=x.device)
+    _build.launch(name, "pggan_conv3x3", x.data_ptr(), w.data_ptr(),
+                  None if b is None else b.data_ptr(), y.data_ptr(),
+                  None if r is None else r.data_ptr(), ws.data_ptr(),
+                  n, h, c, wd, k, kt, epi, float(slope), float(eps))
     return y, r
 
 
@@ -196,16 +201,17 @@ def _act_pn_fwd(x, w, b, slope, eps):
 
 
 def _dw_plan(n, h, c, w, k):
-    """The dw kernel's k tile, image rows per block and number of partial
-    sums P: enough blocks to fill the card, each over whole rows of one
-    128-column tile."""
-    kt = 8 if k <= 8 else 16 if k <= 16 else 32
+    """The dw kernel's k tile, image rows per block, row runs per image and
+    column tiles: enough blocks to fill the card, each over a run of at
+    least ``_DW_MIN_ROWS`` rows (where the image has them) of one
+    128-column tile, so that a run's two halo rows stay a small share."""
+    kt = k_tier(min(k, K_TIERS[-1]))
     col_tiles = -(-w // _DW_COLS)
-    tiles = -(-c // 8) * -(-k // kt) * col_tiles
-    rows = n * h
-    chunks = min(rows, max(1, -(-_DW_TARGET_BLOCKS // tiles)))
-    rows_per_block = -(-rows // chunks)
-    return kt, rows_per_block, -(-rows // rows_per_block) * col_tiles
+    tiles = n * -(-c // 8) * -(-k // kt) * col_tiles
+    chunks = min(-(-h // _DW_MIN_ROWS),
+                 max(1, -(-_DW_TARGET_BLOCKS // tiles)))
+    rows_per_block = -(-h // chunks)
+    return kt, rows_per_block, -(-h // rows_per_block), col_tiles
 
 
 def _dw_fwd(x, ct):
@@ -224,11 +230,12 @@ def _dw_fwd(x, ct):
         return dw
     if not x.numel():
         return dw.zero_()
-    kt, rows_per_block, parts = _dw_plan(n, h, c, wd, k)
-    ws = torch.empty((parts, 9, c, k), dtype=x.dtype, device=x.device)
+    kt, rows_per_block, row_chunks, col_tiles = _dw_plan(n, h, c, wd, k)
+    ws = torch.empty((n * row_chunks * col_tiles, 9, c, k), dtype=x.dtype,
+                     device=x.device)
     _build.launch("conv3x3_dw", "pggan_conv3x3_dw", x.data_ptr(),
                   ct.data_ptr(), ws.data_ptr(), dw.data_ptr(), n, h, c, wd, k,
-                  kt, rows_per_block, parts)
+                  kt, rows_per_block, row_chunks, col_tiles)
     return dw
 
 
