@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: builds the hand-written
 kernels, holds each against its plain PyTorch version at the shapes of the
-depth-8 (1024 px) paper-configuration serve, serves a random-init
-paper-configuration snapshot through ``pggan_tpu_torch.cli.generate`` and
-checks what comes out against the same model run on the CPU, then trains
-the paper configuration for a few WGAN-GP steps at depth 8, holds every
-kernel against its plain version at every shape one train step gives it,
-holds a depth-6 train step against the same step on the CPU, and profiles
-warm depth-8 train steps (device time by kernel, device busy share).
+depth-8 (1024 px) paper-configuration serve (the fused conv pair also
+against the two unfused calls it replaces), serves a random-init
+paper-configuration snapshot through ``pggan_tpu_torch.cli.generate``,
+checks what comes out against the same model run on the CPU and profiles
+one served chunk, then trains the paper configuration for a few WGAN-GP
+steps at depth 8, holds every kernel against its plain version at every
+shape one train step gives it, holds a depth-6 train step against the same
+step on the CPU, and profiles warm depth-8 train steps (device time by
+kernel, device busy share).
 
     python3 chip_smoke.py
 
@@ -124,6 +126,12 @@ def work(name: str, sig) -> tuple:
     raise KeyError(name)
 
 
+def achieved_gb_per_s(name: str, sig, ms: float) -> float:
+    """The bytes ``work`` counts for one call, over its measured ms, in
+    GB/s (to set beside the card's 3.35 TB/s)."""
+    return work(name, sig)[1] / ms / 1e6
+
+
 def bounds(flops: float, nbytes: float) -> tuple:
     """The least time (ms) the card could take for this work: the larger of
     bytes over the memory rate and FLOPs over the three-product TF32 rate;
@@ -161,6 +169,21 @@ def library_call(torch, name, args):
     return None
 
 
+def burst_ms(torch, fn, calls: int = 100) -> float:
+    """Device time a call of ``calls`` back-to-back calls between two CUDA
+    events: the host's launch time hides behind the queued work, where
+    ``time_ms``'s single bracketed call includes it."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
     """Median device time of one call, from CUDA events around each of
     ``reps`` calls after ``warmup`` calls."""
@@ -191,6 +214,9 @@ class KernelChecks:
         # not timed) / over the calls of one depth-8 train step
         # (train_shapes)
         self.err = {k: 0.0 for k in KERNELS}
+        # upsample2x's train shapes: (one bracketed call, a call of a
+        # back-to-back burst) ms, to show the host's share of a call
+        self.host = {}
         self.sums = {per: {k: collections.Counter() for k in KERNELS}
                      for per in ("serve", "train")}
 
@@ -273,8 +299,11 @@ class KernelChecks:
         return t["ms"], t["plain_ms"]
 
     def conv_modes(self, x, w, b, label, timed=True):
+        """The three conv modes against the plain version in float64;
+        returns each mode's ms (timed calls)."""
         from pggan_tpu_torch.ops import conv3x3 as C
         plain = plain_versions()
+        times = {}
         kernels = {"conv3x3": C.conv3x3,
                    "conv3x3_act": lambda x, w, b, s: C.conv3x3_act(
                        x, w, b, slope=s),
@@ -283,20 +312,31 @@ class KernelChecks:
         for name, args in (("conv3x3", (x, w)),
                            ("conv3x3_act", (x, w, b, 0.2)),
                            ("conv3x3_act_pn", (x, w, b, 0.2, 1e-8))):
-            self.check(name, label,
-                       lambda k=kernels[name], a=args: k(*a),
-                       lambda p=plain[name], a=args: p(*a), timed=timed,
-                       args=args, reference=self.f64(plain[name], *args))
+            t = self.check(name, label,
+                           lambda k=kernels[name], a=args: k(*a),
+                           lambda p=plain[name], a=args: p(*a), timed=timed,
+                           args=args, reference=self.f64(plain[name], *args))
+            if t is not None:
+                times[name] = t[0]
+        return times
 
     def chain_modes(self, x, w1, b1, w2, b2, label, timed=True):
+        """Both chain modes against the plain version in float64 (the f32
+        plain version's error printed beside); returns each mode's ms."""
         from pggan_tpu_torch.ops import conv_chain as CH
+        times = {}
         for name, pn in (("conv3x3_chain_pn", 1e-8), ("conv3x3_chain", None)):
-            self.check(name, label,
-                       lambda: CH.conv3x3_chain(x, w1, b1, w2, b2, slope=0.2,
-                                                pn_eps=pn),
-                       lambda: CH.conv3x3_chain_plain(x, w1, b1, w2, b2,
-                                                      slope=0.2, pn_eps=pn),
-                       timed=timed, args=(x, w1, b1, w2, b2))
+            def plain(*a, pn=pn):
+                return CH.conv3x3_chain_plain(*a, slope=0.2, pn_eps=pn)
+            args = (x, w1, b1, w2, b2)
+            t = self.check(name, label,
+                           lambda pn=pn: CH.conv3x3_chain(
+                               *args, slope=0.2, pn_eps=pn),
+                           lambda p=plain: p(*args), timed=timed, args=args,
+                           reference=self.f64(plain, *args))
+            if t is not None:
+                times[name] = t[0]
+        return times
 
     def layer(self, c, k):
         """He-scaled 3x3 weight (HWIO) and a small bias, as G's layers."""
@@ -309,19 +349,37 @@ class KernelChecks:
         with torch.no_grad():
             for up_shape, (c, k1, k2) in STAGES:
                 x = self.rand(*up_shape)
-                self.check("upsample2x", f"x {up_shape}",
-                           lambda: R.upsample_2x(x, 1, 3),
-                           lambda: R.upsample2x_plain(x, 1, 3), exact=True,
-                           args=(x, 1, 3))
+                t_up, _ = self.check("upsample2x", f"x {up_shape}",
+                                     lambda: R.upsample_2x(x, 1, 3),
+                                     lambda: R.upsample2x_plain(x, 1, 3),
+                                     exact=True, args=(x, 1, 3))
+                # device time from back-to-back calls: one bracketed call
+                # (t_up) also holds the host's launch time
+                sig = (up_shape, 1, 3)
+                t_dev = burst_ms(torch, lambda: R.upsample_2x(x, 1, 3), 20)
+                log(f"    upsample2x {up_shape}: {t_dev:.3f} ms a call back "
+                    f"to back (one call {t_up:.3f}): "
+                    f"{achieved_gb_per_s('upsample2x', sig, t_dev):.0f} GB/s,"
+                    f" {bounds(*work('upsample2x', sig))[0] / t_dev:.1%} of "
+                    f"its bytes bound (3.35 TB/s)")
                 n, h, _c, w = up_shape
                 xs = self.rand(n, 2 * h, c, 2 * w)
                 w1, b1 = self.layer(c, k1)
                 w2, b2 = self.layer(k1, k2)
-                self.conv_modes(xs, w1, b1, f"{c}->{k1} at {2 * h} px")
+                first = self.conv_modes(xs, w1, b1, f"{c}->{k1} at {2 * h} px")
                 z = self.rand(n, 2 * h, k1, 2 * w)
-                self.conv_modes(z, w2, b2, f"{k1}->{k2} at {2 * h} px")
-                self.chain_modes(xs, w1, b1, w2, b2,
-                                 f"{c}->{k1}->{k2} at {2 * h} px")
+                second = self.conv_modes(z, w2, b2,
+                                         f"{k1}->{k2} at {2 * h} px")
+                chain = self.chain_modes(xs, w1, b1, w2, b2,
+                                         f"{c}->{k1}->{k2} at {2 * h} px")
+                # the chain against the two calls it replaces
+                for name, conv in (("conv3x3_chain_pn", "conv3x3_act_pn"),
+                                   ("conv3x3_chain", "conv3x3_act")):
+                    pair = first[conv] + second[conv]
+                    self.sums["serve"][name]["unchained_ms"] += pair
+                    log(f"    {name} at {2 * h} px: {chain[name]:.3f} ms "
+                        f"against two {conv} {pair:.3f} ms: "
+                        f"{chain[name] / pair:.2f}x")
                 del x, xs, z
             # ragged: H and W not multiples of any tile, to hold the masks
             x = self.rand(3, 37, 5, 45)
@@ -403,8 +461,16 @@ class KernelChecks:
                     reference=(self.f64(plain[name], *args)
                                if name in F64_REFERENCE else None))
                 gp_ms += gp_dw.get((name, sig), 0) * t_k
+                if name == "upsample2x":
+                    burst = burst_ms(
+                        torch, lambda a=args: CallLog.ORIGINAL[name](*a))
+                    self.host[sig] = (t_k, burst)
                 del args
         torch.cuda.empty_cache()
+        for sig, (one, burst) in sorted(
+                self.host.items(), key=lambda kv: math.prod(kv[0][0]))[:3]:
+            log(f"  upsample2x {sig[0]}: one bracketed call {one * 1e3:.1f} "
+                f"us, in a burst of 100 {burst * 1e3:.1f} us a call")
         return gp_ms
 
 
@@ -570,8 +636,9 @@ def serve_phase(torch, card):
                 rate = steady_rate(torch, snap, sample_images)
                 log(f"  serve rate, depth 8 (1024 px), batch {BATCH}, f32: "
                     f"{rate:.2f} img/s on {card}")
+                profile = serve_profile(torch, snap, sample_images)
             del out
-    return total, rate
+    return total, rate, profile
 
 
 def steady_rate(torch, snap, sample_images):
@@ -592,6 +659,30 @@ def steady_rate(torch, snap, sample_images):
         torch.cuda.synchronize()
         rates.append(n / (time.perf_counter() - t0))
     return sorted(rates)[1]
+
+
+def serve_profile(torch, snap, sample_images):
+    """``torch.profiler`` over one warm ``sample_images`` chunk of BATCH
+    (the serve default, chain on): device time by kernel group, the D2H
+    copy included, against the host window."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from pggan_tpu_torch.checkpoint import load_snapshot
+    G, meta = load_snapshot(snap, device="cuda")
+    G.inference_chain = True
+    run = lambda: sample_images(  # noqa: E731
+        G, meta["depth"], meta["alpha"], BATCH, minibatch=BATCH,
+        rng=np.random.RandomState(SEED))
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return device_profile(torch, prof, wall_ms, 1,
+                          f"serve profile, one chunk of {BATCH}", "chunk")
 
 
 def paper_models(torch, device):
@@ -767,7 +858,8 @@ def step_against_cpu(torch, device="cuda"):
 
 # device kernels by source, for the profile (first match wins)
 KERNEL_GROUPS = (
-    ("conv3x3 kernel", ("conv3x3_kernel", "split_weights")),
+    ("chain kernel", ("chain_kernel", "chain_split")),
+    ("conv3x3 kernel", ("conv3x3_kernel", "conv3x3_split")),
     ("conv3x3_dw kernel", ("conv3x3_dw",)),
     ("upsample / pool kernels", ("upsample2x", "avgpool2x")),
     ("cuDNN / GEMM", ("cudnn", "gemm", "sm90_", "sm80_", "cutlass", "xmma",
@@ -775,6 +867,7 @@ KERNEL_GROUPS = (
     ("Adam (foreach)", ("foreach", "multi_tensor")),
     ("reductions", ("reduce",)),
     ("elementwise and copies", ("elementwise", "copy", "fill", "cat")),
+    ("device-to-host copy", ("Memcpy DtoH",)),
 )
 
 
@@ -803,38 +896,45 @@ def profile_phase(torch, steps: int = 2):
                 step(state, prep(u8, alpha), alpha, LR, LR)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        by_name = collections.Counter()
-        spans = []
-        for e in kernels:
-            by_name[e.name] += e.time_range.elapsed_us() / 1e3
-            spans.append((e.time_range.start, e.time_range.end))
-        busy_us, end = 0.0, -math.inf
-        for a, b in sorted(spans):
-            if b > end:
-                busy_us += b - max(a, end)
-                end = b
-        groups = collections.Counter()
-        for name, ms in by_name.items():
-            group = next((g for g, keys in KERNEL_GROUPS
-                          if any(k in name for k in keys)), "other")
-            groups[group] += ms / steps
         graph = "fade" if fade else "stable"
-        out[graph] = {
-            "wall_ms_per_step": wall_ms / steps,
-            "device_busy_ms_per_step": busy_us / 1e3 / steps,
-            "device_busy_share": busy_us / 1e3 / wall_ms,
-            "launches_per_step": len(kernels) / steps,
-            "ms_per_step_by_group": dict(groups.most_common()),
-            "top_kernels_ms_per_step": {
-                n: ms / steps for n, ms in by_name.most_common(12)}}
-        log(f"  {graph}: {wall_ms / steps:.1f} ms a step, device busy "
-            f"{busy_us / 1e3 / steps:.1f} ms ({busy_us / 1e3 / wall_ms:.1%})"
-            f", {len(kernels) / steps:.0f} launches")
-        for g, ms in groups.most_common():
-            log(f"    {g:24s} {ms:8.3f} ms")
+        out[graph] = device_profile(torch, prof, wall_ms, steps, graph,
+                                    "step")
     return out
+
+
+def device_profile(torch, prof, wall_ms, per, tag, unit) -> dict:
+    """Sums a profiler window's device activity (kernels and copies) by
+    name and by ``KERNEL_GROUPS``, per ``per`` repetitions; the busy share
+    is the union of their intervals over the host window ``wall_ms``."""
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = collections.Counter()
+    spans = []
+    for e in kernels:
+        by_name[e.name] += e.time_range.elapsed_us() / 1e3
+        spans.append((e.time_range.start, e.time_range.end))
+    busy_us, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    groups = collections.Counter()
+    for name, ms in by_name.items():
+        group = next((g for g, keys in KERNEL_GROUPS
+                      if any(k in name for k in keys)), "other")
+        groups[group] += ms / per
+    log(f"  {tag}: {wall_ms / per:.1f} ms a {unit}, device busy "
+        f"{busy_us / 1e3 / per:.1f} ms ({busy_us / 1e3 / wall_ms:.1%}), "
+        f"{len(kernels) / per:.0f} launches and copies")
+    for g, ms in groups.most_common():
+        log(f"    {g:24s} {ms:8.3f} ms")
+    return {f"wall_ms_per_{unit}": wall_ms / per,
+            f"device_busy_ms_per_{unit}": busy_us / 1e3 / per,
+            "device_busy_share": busy_us / 1e3 / wall_ms,
+            f"launches_per_{unit}": len(kernels) / per,
+            f"ms_per_{unit}_by_group": dict(groups.most_common()),
+            f"top_kernels_ms_per_{unit}": {
+                n: ms / per for n, ms in by_name.most_common(12)}}
 
 
 def main() -> int:
@@ -874,7 +974,7 @@ def main() -> int:
 
     # phase 4: the slice, through the CLI
     log("phase 4: serve a random paper-config snapshot (depth 8, 1024 px)")
-    launches, rate = serve_phase(torch, card)
+    launches, rate, serve_prof = serve_phase(torch, card)
     for name in SERVE_KERNELS:
         if launches[name] == 0:
             raise AssertionError(f"{name} was never launched by the serve")
@@ -925,9 +1025,12 @@ def main() -> int:
             "bound_by": ("bytes" if t["bytes_bound_ms"]
                          >= t["operations_bound_ms"] else "operations"),
             "fma_bound_ms": t["fma_bound_ms"],
+            **({"unchained_ms": t["unchained_ms"]} if name in SERVE_ONLY
+               else {}),
             "per": "train_step_depth8" if per_step else "serve_forward_depth8"})
     print(json.dumps({"serve": {"img_per_s": rate, "depth": 8,
-                                "batch": BATCH, "card": card_line}}))
+                                "batch": BATCH, "profile": serve_prof,
+                                "card": card_line}}))
     print(json.dumps({"train": {**train, "card": card_line}}))
     print(json.dumps({"profile": {**profile, "card": card_line}}))
     print(json.dumps({"kernels": kernels}))

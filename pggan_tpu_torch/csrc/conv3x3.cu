@@ -53,6 +53,7 @@
 #include <cuda_runtime.h>
 
 #include "epilogue.cuh"
+#include "split_weights.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -61,6 +62,8 @@ constexpr int kThreads = 256;  // 8 warps
 constexpr int kTW = 64;        // output columns per tile
 constexpr int kCC = 8;         // input channels per stage (one k-step)
 constexpr int kSW = kTW + 8;   // staged halo row, floats (= 8 mod 32)
+
+struct conv3x3_split;  // names this kernel's weight split in a profile
 
 template <int KT>
 struct Tile {
@@ -74,26 +77,6 @@ struct Tile {
   static constexpr int kStageFloats = kXFloats + kWFloats;
   static constexpr size_t kSmemBytes = 2 * kStageFloats * sizeof(float);
 };
-
-// ws[grp][tap][c][k] = (hi, lo) for c < C8, k < KS: the split of
-// w[tap][c][grp KT + k], zero for c >= C, k >= KT or grp KT + k >= K
-__global__ void split_weights(const float* __restrict__ w,
-                              float2* __restrict__ ws, int C, int K, int KT,
-                              int C8, int KS, long long E) {
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < E;
-       e += (long long)gridDim.x * blockDim.x) {
-    const int k = (int)(e % KS);
-    const long long rest = e / KS;
-    const int c = (int)(rest % C8);
-    const int tap = (int)(rest / C8 % 9), kk = (int)(rest / C8 / 9) * KT + k;
-    const float a = c < C && k < KT && kk < K
-                        ? __ldg(w + ((long long)tap * C + c) * K + kk)
-                        : 0.f;
-    uint32_t hi, lo;
-    pggan::tf32_split(a, hi, lo);
-    ws[e] = make_float2(__uint_as_float(hi), __uint_as_float(lo));
-  }
-}
 
 template <int KT, int EPI>
 __global__ void __launch_bounds__(kThreads, KT <= 16 ? 3 : 2)
@@ -276,16 +259,14 @@ int launch(const Args& a) {
   using T = Tile<KT>;
   const int C8 = (a.C + kCC - 1) / kCC * kCC;
   const int groups = (a.K + KT - 1) / KT;
-  const long long E = (long long)groups * 9 * C8 * T::KS;
-  auto split = split_weights;
-  split<<<(unsigned)((E + 255) / 256), 256, 0, a.stream>>>(
-      a.w, reinterpret_cast<float2*>(a.ws), a.C, a.K, KT, C8, T::KS, E);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  const int split = pggan::launch_split_weights<conv3x3_split>(
+      a.w, reinterpret_cast<float2*>(a.ws), a.C, a.K, KT, C8, T::KS, groups,
+      a.stream);
+  if (split != 0) return split;
   auto kern = conv3x3_kernel<KT, EPI>;
   // above 48 KB only as opted-in dynamic shared memory
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)T::kSmemBytes);
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmemBytes);
   if (e != cudaSuccess) return (int)e;
   const int vec = a.W % 4 == 0 && reinterpret_cast<uintptr_t>(a.x) % 16 == 0;
   dim3 grid((a.W + kTW - 1) / kTW, (a.H + T::TH - 1) / T::TH,

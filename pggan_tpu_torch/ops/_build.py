@@ -36,7 +36,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("conv3x3.cu", "conv3x3_dw.cu", "conv_chain.cu", "upsample2x.cu",
            "avgpool2x.cu")
-HEADERS = ("epilogue.cuh", "tf32_mma.cuh")
+HEADERS = ("epilogue.cuh", "split_weights.cuh", "tf32_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -53,15 +53,17 @@ _SIGNATURES = {
     # col_tiles, stream
     "pggan_conv3x3_dw": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _P),
-    # x, w1, b1, w2, b2, y, N, H, C, W, K1, K2, K1T, K2T, pn, slope, eps,
-    # stream
-    "pggan_conv3x3_chain": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _I, _I, _F, _F, _P),
+    # x, w1, b1, w2, b2, y, ws, N, H, C, W, K1, K2, K1T, K2T, pn, slope,
+    # eps, stream
+    "pggan_conv3x3_chain": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _F, _F, _P),
 }
 
 # launches per kernel name; chip_smoke.py zeroes it around the main path
 LAUNCHES: collections.Counter = collections.Counter()
 _lib = None
+# each C entry point's ctypes function, its argtypes set, on first launch
+_ENTRY: dict = {}
 
 
 def _nvcc() -> str:
@@ -127,9 +129,6 @@ def library() -> ctypes.CDLL:
         if not path.exists():
             _compile(path)
     lib = ctypes.CDLL(str(path))
-    for fn, argtypes in _SIGNATURES.items():
-        getattr(lib, fn).argtypes = list(argtypes)
-        getattr(lib, fn).restype = ctypes.c_int
     lib.pggan_error_string.argtypes = [ctypes.c_int]
     lib.pggan_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -138,14 +137,14 @@ def library() -> ctypes.CDLL:
 
 def _demangle(symbol: str) -> str:
     """``_ZN<ns><name>I<args>E...`` -> ``name<args>`` for the kernels here
-    (anonymous namespace, integer template arguments)."""
+    (namespaces, integer and bool template arguments)."""
     rest, names = symbol[3:], []
     while rest[:1].isdigit():
         n = re.match(r"\d+", rest).group()
         names.append(rest[len(n):len(n) + int(n)])
         rest = rest[len(n) + int(n):]
-    targs = re.match(r"I((?:Li\d+E)+)E", rest)
-    args = re.findall(r"Li(\d+)E", targs.group(1)) if targs else []
+    targs = re.match(r"I((?:L[ib]\d+E)+)E", rest)
+    args = re.findall(r"L[ib](\d+)E", targs.group(1)) if targs else []
     return (names[-1] if names else symbol) + (
         f"<{','.join(args)}>" if args else "")
 
@@ -169,15 +168,32 @@ def ptxas_report() -> dict:
     return report
 
 
+def _entry(fn: str):
+    """C entry point ``fn`` of the library, resolved and typed once."""
+    f = getattr(library(), fn)
+    f.argtypes = list(_SIGNATURES[fn])
+    f.restype = ctypes.c_int
+    _ENTRY[fn] = f
+    return f
+
+
+def _current_stream() -> int:
+    """The current CUDA stream's handle, from the raw getter: building the
+    ``torch.cuda.Stream`` object of ``current_stream()`` costs the host
+    more than many of the kernels take on the card."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+
+
 def launch(name: str, fn: str, *args) -> None:
     """Call C entry point ``fn`` on the current stream (appended as the last
-    argument), raise if the launch failed, and count it under ``name``."""
-    lib = library()
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib, fn)(*args, stream)
+    argument), raise if the launch failed, and count it under ``name``.
+    The ctypes function is looked up and typed on the first call only, so
+    a launch costs one dictionary lookup and the foreign call on the host."""
+    f = _ENTRY.get(fn) or _entry(fn)
+    err = f(*args, _current_stream())
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: CUDA error {err} "
-                           f"({lib.pggan_error_string(err).decode()})")
+                           f"({library().pggan_error_string(err).decode()})")
     LAUNCHES[name] += 1
 
 

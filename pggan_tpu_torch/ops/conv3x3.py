@@ -71,17 +71,6 @@ def k_tier(k: int) -> int:
                      f"{K_TIERS[-1]} output channels, got {k}")
 
 
-def pad_out_channels(t: torch.Tensor, kt: int) -> torch.Tensor:
-    """Zero-pad the last (output-channel) axis of a weight or bias to the
-    kernel's tile ``kt``; contiguous either way."""
-    k = t.shape[-1]
-    if k == kt:
-        return t.contiguous()
-    out = t.new_zeros(t.shape[:-1] + (kt,))
-    out[..., :k] = t
-    return out
-
-
 def supported(x_nhcw_shape, w_shape, pixelnorm: bool = False) -> bool:
     """Can the CUDA kernel take this shape? Any H, W and C; a 3x3 kernel
     over the same C; any K without pixelnorm (groups of 64), at most 64 with

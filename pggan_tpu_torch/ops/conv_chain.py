@@ -8,11 +8,15 @@ stays in shared memory; on a CPU tensor it runs the plain version below.
 It has no backward, ever: a tensor that requires grad raises, on any
 device, as the JAX chain fails under AD.
 
-The kernel replaces ``pggan_tpu/ops/pallas_chain.py:conv3x3_chain``. It is
-bound by f32 FMAs like the conv; fusing saves the intermediate's write and
-read. A block stages the input halo and the intermediate tile in dynamic
-shared memory, and zeroes intermediate rows and columns outside the image:
-they are the second conv's padding (design notes in the source).
+The kernel replaces ``pggan_tpu/ops/pallas_chain.py:conv3x3_chain``. Both
+convs run on the tensor cores in the conv kernel's arithmetic (TF32
+``mma.sync`` with the three-product split, f32 accuracy); fusing saves the
+intermediate's write and read. A block computes a ``TH`` x 32 output tile:
+stage 1 computes the (TH + 2) x 34 intermediate tile (its halo included)
+into shared memory, streaming input channels in chunks of 8, and writes
+positions outside the image as 0 (the second conv's padding, not
+``ep(conv(0))``); stage 2 computes the output tile from it. The tile plan
+is the source's ``Plan`` (design notes there).
 """
 
 from __future__ import annotations
@@ -20,35 +24,29 @@ from __future__ import annotations
 import torch
 
 from pggan_tpu_torch.ops import _build
-from pggan_tpu_torch.ops.conv3x3 import (
-    K_TIERS,
-    _act_plain,
-    conv3x3_plain,
-    k_tier,
-    pad_out_channels,
-)
+from pggan_tpu_torch.ops.conv3x3 import (K_TIERS, _act_plain, conv3x3_plain,
+                                         k_tier)
 
-# the H100's per-block shared-memory limit, and the kernel's tile sizes
-_SMEM_LIMIT = 232448
-_TH, _TW = 8, 32
+_CC = 8  # the kernel's input channels a stage (csrc/conv_chain.cu kCC)
 
 
-def _smem_bytes(c: int, k1: int) -> int:
-    """Dynamic shared memory of one block: the (8+4) x C x (32+4) input halo
-    tile plus the (8+2) x K1 x (32+2) intermediate tile, f32."""
-    return 4 * ((_TH + 4) * c * (_TW + 4) + (_TH + 2) * k1 * (_TW + 2))
+def _workspace_floats(c: int, k1: int, k2: int) -> int:
+    """Scratch for the split weights: (9, C8, K1T + 4) and (9, K18, K2T +
+    4) (hi, lo) pairs, C8 and K18 = C and K1 rounded up to 8."""
+    c8, k18 = -(-c // _CC) * _CC, -(-k1 // _CC) * _CC
+    return 2 * 9 * (c8 * (k_tier(k1) + 4) + k18 * (k_tier(k2) + 4))
 
 
 def chain_supported(x_nhcw_shape, w1_shape, w2_shape) -> bool:
     """Can the CUDA chain kernel take this shape pair? 3x3 convs that
-    chain, at most 64 channels out of each, and both tiles in one block's
-    shared memory (C = 64, K1 = 32 takes 154 KB)."""
+    chain, at most 64 channels out of each; any H, W and C (input channels
+    are streamed in chunks of 8, so shared memory does not grow with C, and
+    every plan of the source fits a block)."""
     _n, _h, c, _w = x_nhcw_shape
     k1, k2 = w1_shape[3], w2_shape[3]
     return (tuple(w1_shape[:3]) == (3, 3, c)
             and tuple(w2_shape[:3]) == (3, 3, k1)
-            and 1 <= k1 <= K_TIERS[-1] and 1 <= k2 <= K_TIERS[-1]
-            and _smem_bytes(c, k1) <= _SMEM_LIMIT)
+            and 1 <= k1 <= K_TIERS[-1] and 1 <= k2 <= K_TIERS[-1])
 
 
 def _ep_plain(z, b, slope, pn_eps):
@@ -85,15 +83,15 @@ def conv3x3_chain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         return conv3x3_chain_plain(x, w1, b1, w2, b2, slope=slope,
                                    pn_eps=pn_eps)
     n, h, c, wd = x.shape
-    k1t, k2t = k_tier(k1), k_tier(k2)
-    w1p, b1p = pad_out_channels(w1, k1t), pad_out_channels(b1, k1t)
-    w2p, b2p = pad_out_channels(w2, k2t), pad_out_channels(b2, k2t)
     y = torch.empty((n, h, k2, wd), dtype=x.dtype, device=x.device)
     if y.numel():
+        ws = torch.empty(_workspace_floats(c, k1, k2), dtype=x.dtype,
+                         device=x.device)
         name = "conv3x3_chain" if pn_eps is None else "conv3x3_chain_pn"
         _build.launch(name, "pggan_conv3x3_chain", x.data_ptr(),
-                      w1p.data_ptr(), b1p.data_ptr(), w2p.data_ptr(),
-                      b2p.data_ptr(), y.data_ptr(), n, h, c, wd, k1, k2,
-                      k1t, k2t, int(pn_eps is not None), float(slope),
+                      w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                      b2.data_ptr(), y.data_ptr(), ws.data_ptr(), n, h, c,
+                      wd, k1, k2, k_tier(k1), k_tier(k2),
+                      int(pn_eps is not None), float(slope),
                       float(pn_eps or 0.0))
     return y

@@ -62,6 +62,21 @@ def test_bounds(gflop, mb, bound_ms, by, fma_ms):
     assert got_fma == pytest.approx(fma_ms, rel=1e-3)
 
 
+@pytest.mark.parametrize("shape, ms, gb_s", [
+    # the serve's three upsamples at their bytes bound (3.35 TB/s) and at
+    # half of it
+    ((16, 128, 64, 128), 0.1001625, 3350.0),
+    ((16, 256, 32, 256), 0.4006499, 1675.0),
+    ((16, 512, 16, 512), 0.8012999, 1675.0),
+])
+def test_achieved_rate_of_the_upsample(shape, ms, gb_s):
+    sig = (shape, 1, 3)
+    assert smoke.achieved_gb_per_s("upsample2x", sig, ms) == pytest.approx(
+        gb_s, rel=1e-4)
+    bound_ms = smoke.bounds(*smoke.work("upsample2x", sig))[0]
+    assert bound_ms / ms == pytest.approx(gb_s / 3350.0, rel=1e-4)
+
+
 def _rand(*shape, seed=0):
     return torch.from_numpy(
         np.random.RandomState(seed).randn(*shape).astype(np.float32))
