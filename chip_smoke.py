@@ -4,12 +4,16 @@ kernels, holds each against its plain PyTorch version at the shapes of the
 depth-8 (1024 px) paper-configuration serve (the fused conv pair also
 against the two unfused calls it replaces), serves a random-init
 paper-configuration snapshot through ``pggan_tpu_torch.cli.generate``,
-checks what comes out against the same model run on the CPU and profiles
-one served chunk, then trains the paper configuration for a few WGAN-GP
-steps at depth 8, holds every kernel against its plain version at every
-shape one train step gives it, holds a depth-6 train step against the same
-step on the CPU, and profiles warm depth-8 train steps (device time by
-kernel, device busy share).
+checks what comes out against the same model run on the CPU, holds the
+serve's pinned copy to the host against the pageable one, and profiles one
+served chunk, then trains the paper configuration for a few WGAN-GP steps
+at depth 8, eagerly and as CUDA graph replays (the replay held against the
+eager step), holds every kernel against its plain version at every shape
+one train step gives it, holds a depth-6 train step against the same step
+on the CPU, profiles warm depth-8 train steps (device time by kernel,
+device busy share, launches from the host), and last runs a progressive
+training run from depth 0 to 8 through ``pggan_tpu_torch.cli.train``,
+stopped short and resumed from its checkpoint.
 
     python3 chip_smoke.py
 
@@ -59,6 +63,19 @@ NET_TOL = dict(rtol=2e-3, atol=3e-4)   # tests/test_torch_parity_network.py
 # card against CPU measured 3.4e-3 (on an H100).
 STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_TOL = dict(rtol=1e-3, scaled_atol=1e-2)
+
+# a replayed depth-8 step against the eager step from the same state and
+# draws: the update each tensor took, |replay - eager| / |eager| in the
+# 2-norm, at most 1e-3. The two routes run the same kernels, so the
+# gradients differ by f32 summation order at most; Adam's division by
+# sqrt(nu) passes that noise on in full for the few elements whose
+# gradient is a cancellation, so the bar is on each tensor's norm, not
+# its largest element. A wrong update is far outside: none at all is 1;
+# the compared step takes an alpha and learning rates other than the
+# capture's, so a baked-in lr is at least 0.4; a bias correction one step
+# stale is 1.8e-2 at the step count there (25, b2 0.99).
+UPDATE_TOL = 1e-3
+REPLAY_ALPHA, REPLAY_LR = 0.3, (0.6e-3, 0.3e-3)
 
 # NHCW shapes of the depth-8 tail, stages 5-7 (256, 512, 1024 px):
 # (upsample input), and (C, K1, K2) of each stage's conv pair
@@ -425,15 +442,15 @@ class KernelChecks:
                    lambda: C.conv3x3(x, w), lambda: C.conv3x3_plain(x, w),
                    timed=False, reference=self.f64(C.conv3x3_plain, x, w))
 
-    def train_shapes(self, calls, gp_dw):
+    def train_shapes(self, calls):
         """Every kernel call of one depth-8 train step (``CallLog``), each
-        distinct shape held against its plain version once and timed;
-        the times count as often as the step made the call. The weight
-        gradient's two calls at each shape must agree bit for bit. Returns
-        the kernel ms of the unused weight gradients inside the GP."""
+        distinct shape held against its plain version once and timed: one
+        bracketed call (host launch path included) and a call of a
+        back-to-back burst (device time); the times count as often as the
+        step made the call. The weight gradient's two calls at each shape
+        must agree bit for bit."""
         torch = self.torch
         plain = plain_versions()
-        gp_ms = 0.0
         with torch.no_grad():
             for (name, sig), count in sorted(calls.items()):
                 args = []
@@ -460,18 +477,23 @@ class KernelChecks:
                     count=count, args=args,
                     reference=(self.f64(plain[name], *args)
                                if name in F64_REFERENCE else None))
-                gp_ms += gp_dw.get((name, sig), 0) * t_k
+                burst = burst_ms(
+                    torch, lambda a=args: CallLog.ORIGINAL[name](*a), 20)
+                self.sums["train"][name]["burst_ms"] += count * burst
                 if name == "upsample2x":
-                    burst = burst_ms(
-                        torch, lambda a=args: CallLog.ORIGINAL[name](*a))
                     self.host[sig] = (t_k, burst)
                 del args
         torch.cuda.empty_cache()
         for sig, (one, burst) in sorted(
                 self.host.items(), key=lambda kv: math.prod(kv[0][0]))[:3]:
             log(f"  upsample2x {sig[0]}: one bracketed call {one * 1e3:.1f} "
-                f"us, in a burst of 100 {burst * 1e3:.1f} us a call")
-        return gp_ms
+                f"us, in a burst {burst * 1e3:.1f} us a call")
+        for name in TRAIN_KERNELS:
+            t = self.sums["train"][name]
+            log(f"  {name:15s} per fade step: bracketed {t['ms']:.3f} ms, "
+                f"back to back {t['burst_ms']:.3f} ms, bound "
+                f"{t['bound_ms']:.3f} ms: {t['bound_ms'] / t['burst_ms']:.1%}"
+                f" of its bound back to back")
 
 
 F64_REFERENCE = ("conv3x3", "conv3x3_act", "conv3x3_act_pn", "conv3x3_dw")
@@ -495,9 +517,8 @@ def plain_versions():
 class CallLog:
     """Records the kernel wrappers' calls (kernel mode and input shapes) on
     the train path, and which weight-gradient calls fall inside the
-    gradient penalty's inner ``autograd.grad``: those compute D's weight
-    gradients that nothing uses (``ctx.needs_input_grad`` is fixed at
-    forward time), the cost this port pays over the JAX package there."""
+    gradient penalty's inner ``autograd.grad``: there should be none, as
+    in the JAX package (``ops/conv3x3.py:input_grad_only``)."""
 
     ORIGINAL: dict = {}
 
@@ -635,30 +656,82 @@ def serve_phase(torch, card):
             if i == 0:
                 rate = steady_rate(torch, snap, sample_images)
                 log(f"  serve rate, depth 8 (1024 px), batch {BATCH}, f32: "
-                    f"{rate:.2f} img/s on {card}")
+                    f"{rate['pinned']:.2f} img/s pinned, "
+                    f"{rate['pageable']:.2f} pageable, on {card}")
                 profile = serve_profile(torch, snap, sample_images)
             del out
     return total, rate, profile
 
 
+def pageable_route(torch, G, depth, alpha, num_samples, minibatch, rng):
+    """``sample_images`` as it was before its pinned copy: each chunk's
+    forward, then a blocking ``.cpu().numpy()`` into pageable memory."""
+    import numpy as np
+    from pggan_tpu_torch.utils.misc import random_latents
+    outs, done = [], 0
+    with torch.inference_mode():
+        while done < num_samples:
+            take = min(minibatch, num_samples - done)
+            z = random_latents(take, G.latent_size, rng)
+            if take < minibatch:
+                z = np.concatenate(
+                    [z, np.zeros((minibatch - take, G.latent_size), z.dtype)])
+            imgs = G(torch.from_numpy(z).cuda(), depth, alpha,
+                     fade=alpha < 1.0)
+            outs.append(imgs[:take].cpu().numpy())
+            done += take
+    return np.concatenate(outs)
+
+
 def steady_rate(torch, snap, sample_images):
-    """Images per second of warm ``sample_images`` calls: 3 padded chunks
-    of BATCH, timed on the host clock around a synchronised call."""
+    """Images per second of warm ``sample_images`` calls (the pinned,
+    overlapped copy) and of the pageable route before it, 3 chunks of
+    BATCH each, timed on the host clock around a synchronised call, in
+    turns (pageable, pinned, pinned, pageable, ...). The two routes' images
+    of a request whose last chunk is padded must be the same bytes, with
+    cuDNN held to deterministic algorithms."""
     import numpy as np
     from pggan_tpu_torch.checkpoint import load_snapshot
     G, meta = load_snapshot(snap, device="cuda")
     G.inference_chain = True
+    depth, alpha = meta["depth"], float(np.float32(meta["alpha"]))
+    routes = {
+        "pinned": lambda n: sample_images(G, depth, alpha, n, minibatch=BATCH,
+                                          rng=np.random.RandomState(SEED)),
+        "pageable": lambda n: pageable_route(torch, G, depth, alpha, n, BATCH,
+                                             np.random.RandomState(SEED))}
+    # G's low-resolution transposed convs run cuDNN's data-gradient
+    # algorithms, which may sum with atomics: two forwards need not agree
+    # bit for bit unless cuDNN is held to its deterministic algorithms
+    n = 3 * BATCH - 8
+    again = routes["pageable"](n).tobytes() == routes["pageable"](n).tobytes()
+    torch.backends.cudnn.deterministic = True
+    try:
+        images = {k: fn(n) for k, fn in routes.items()}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    a, b = images["pinned"], images["pageable"]
+    if a.tobytes() != b.tobytes():
+        rows = [i for i in range(n) if a[i].tobytes() != b[i].tobytes()]
+        raise AssertionError(f"pinned and pageable serves differ in images "
+                             f"{rows}, by up to {np.abs(a - b).max()}")
+    log(f"  two pageable serves the same bytes with cuDNN's default "
+        f"algorithms: {again}; pinned and pageable serves with its "
+        f"deterministic ones: the same bytes")
+    del images
     n = 3 * BATCH
-    sample_images(G, meta["depth"], meta["alpha"], BATCH, minibatch=BATCH)
-    rates = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sample_images(G, meta["depth"], meta["alpha"], n, minibatch=BATCH,
-                      rng=np.random.RandomState(SEED))
-        torch.cuda.synchronize()
-        rates.append(n / (time.perf_counter() - t0))
-    return sorted(rates)[1]
+    rates = {k: [] for k in routes}
+    for order in (("pageable", "pinned"), ("pinned", "pageable")) * 2:
+        for k in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            routes[k](n)
+            torch.cuda.synchronize()
+            rates[k].append(n / (time.perf_counter() - t0))
+    log(f"  serves of {n} images: "
+        + ", ".join(f"{k} {', '.join(f'{r:.2f}' for r in v)} img/s"
+                    for k, v in rates.items()))
+    return {k: sorted(v)[len(v) // 2] for k, v in rates.items()}
 
 
 def serve_profile(torch, snap, sample_images):
@@ -705,14 +778,14 @@ def uint8_reals(torch, builder, depth, seed):
 
 def train_phase(torch, device="cuda"):
     """3 fade steps (alpha 0.5) and 2 stable steps at TRAIN_DEPTH through
-    ``prep_fn`` and ``step_fn``; the second fade step's kernel calls are
-    logged for phase 6."""
+    ``prep_fn`` and the eager ``step_fn``; the second fade step's kernel
+    calls are logged for phase 6."""
     import numpy as np
     from pggan_tpu_torch.ops import _build
     from pggan_tpu_torch.training import TrainStepBuilder, init_state
     G, D = paper_models(torch, device)
     state = init_state(G, D, seed=SEED)
-    builder = TrainStepBuilder(G, D)
+    builder = TrainStepBuilder(G, D, cuda_graphs=False)
     prep = builder.prep_fn()
     start = {n: p.detach().clone() for n, p in
              [*(("G." + k, v) for k, v in G.named_parameters()),
@@ -768,15 +841,131 @@ def train_phase(torch, device="cuda"):
     log(f"  every parameter on the depth-{TRAIN_DEPTH} graph moved; "
         f"{len(unused)} "
         f"toRGB/fromRGB tensors of other depths have no gradient")
-    median = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+    dw_per_step = sum(n for (name, _sig), n in call_log.calls.items()
+                      if name == "conv3x3_dw")
+    gp_dw = sum(call_log.gp_dw.values())
+    log(f"  conv3x3_dw launches in a fade step: {dw_per_step}, of them "
+        f"inside the GP's inner autograd.grad: {gp_dw}")
+    if gp_dw:
+        raise AssertionError("the GP took D weight gradients nothing uses")
     train = {"depth": TRAIN_DEPTH, "batch": TRAIN_BATCH, "d_repeats": 1,
-             "ms_per_step_fade": median(times[True][1:]),
-             "ms_per_step_stable": median(times[False][1:]),
+             "ms_per_step_fade_logged": times[True][1],
              "step_ms_all": {"fade": times[True], "stable": times[False]},
+             "dw_launches_per_fade_step": dw_per_step,
              "max_memory_allocated": peak}
     del G, D, state, builder, start, current, moments
     torch.cuda.empty_cache()
     return train, counts, call_log
+
+
+def graph_phase(torch, steps: int = 6):
+    """The depth-8 step of each graph, eager and as CUDA graph replays:
+    ``steps`` calls each (the graphed route's first call eager, its second
+    the capture and first replay), wall ms of a synchronised call, median
+    of the last ``steps - 2``; then one replay held against the eager step
+    from a copy of the same state, generator and inputs."""
+    from pggan_tpu_torch import checkpoint
+    from pggan_tpu_torch.training import TrainStepBuilder, init_state
+    median = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+    G, D = paper_models(torch, "cuda")
+    state = init_state(G, D, seed=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    builders = {route: TrainStepBuilder(G, D, cuda_graphs=route == "graphed")
+                for route in ("eager", "graphed")}
+    prep = builders["eager"].prep_fn()
+    u8 = uint8_reals(torch, builders["eager"], TRAIN_DEPTH, SEED).cuda()
+    for route, builder in builders.items():
+        for fade in (True, False):
+            alpha = 0.5 if fade else 1.0
+            step = builder.step_fn(TRAIN_DEPTH, TRAIN_BATCH, fade)
+            times = []
+            for _ in range(steps):
+                reals = prep(u8, alpha)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                metrics = step(state, reals, alpha, LR, LR)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            values = {k: float(v) for k, v in metrics.items()}
+            if not all(math.isfinite(v) for v in values.values()):
+                raise AssertionError(f"{route} step: metrics {values}")
+            graph = "fade" if fade else "stable"
+            out[f"{route}_ms_{graph}"] = median(times[2:])
+            out[f"{route}_ms_all_{graph}"] = times
+            line = (f"  {route} {graph}: {median(times[2:]):.1f} ms a warm "
+                    f"step (calls: {', '.join(f'{t:.1f}' for t in times)})")
+            if route == "graphed":
+                out[f"capture_s_{graph}"] = step.capture_s
+                line += f"; capture {step.capture_s:.3f} s"
+            log(line)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    # one replay against the eager step from the same state and draws, at
+    # an alpha and learning rates other than the capture's
+    G2, D2 = paper_models(torch, "cuda")
+    twin = init_state(G2, D2, seed=SEED + 5)
+    checkpoint.restore_training_state(
+        twin, checkpoint.training_state_dict(state))
+    eager = TrainStepBuilder(G2, D2, cuda_graphs=False).step_fn(
+        TRAIN_DEPTH, TRAIN_BATCH, True)
+    reals = prep(uint8_reals(torch, builders["eager"], TRAIN_DEPTH,
+                             SEED + 20).cuda(), REPLAY_ALPHA)
+    before = [p.detach().clone() for p in [*G.parameters(), *D.parameters()]]
+    got = builders["graphed"].step_fn(TRAIN_DEPTH, TRAIN_BATCH, True)(
+        state, reals, REPLAY_ALPHA, *REPLAY_LR)
+    got = {k: float(v) for k, v in got.items()}
+    want = {k: float(v) for k, v in
+            eager(twin, reals, REPLAY_ALPHA, *REPLAY_LR).items()}
+    loss_err = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+                   for k in want)
+    if loss_err > STEP_LOSS_RTOL:
+        raise AssertionError(f"replay {got} against eager {want}")
+    if not torch.equal(state.generator.get_state(),
+                       twin.generator.get_state()):
+        raise AssertionError("replay and eager step left other generator "
+                             "states")
+    out["replay_vs_eager"] = {"loss_rel_err": loss_err,
+                              **compare_updates(
+                                  torch, before,
+                                  [*G.parameters(), *D.parameters()],
+                                  [*G2.parameters(), *D2.parameters()])}
+    del G, D, G2, D2, state, twin, builders, eager
+    torch.cuda.empty_cache()
+    return out
+
+
+def compare_updates(torch, before, got, want) -> dict:
+    """A replayed step's parameter updates (``got`` - ``before``) against
+    the eager step's (``want`` - ``before``) within UPDATE_TOL, tensor by
+    tensor; every tensor the eager step moved must have moved."""
+    ratios, worst = [], 0.0
+    bitwise = True
+    for p0, p, q in zip(before, got, want):
+        dp, dq = p.detach() - p0, q.detach() - p0
+        bitwise &= torch.equal(p, q)
+        ref = float(dq.norm())
+        if ref == 0.0:
+            if dp.any():
+                raise AssertionError("the replay moved a tensor that the "
+                                     "eager step left")
+            continue
+        ratios.append(float((dp - dq).norm()) / ref)
+        worst = max(worst, float((dp - dq).abs().max() / dq.abs().max()))
+    if not ratios or max(ratios) > UPDATE_TOL:
+        raise AssertionError(f"replayed step's updates: largest |replay - "
+                             f"eager| / |eager| {max(ratios, default=0):.2e}"
+                             f" over {len(ratios)} tensors, bar {UPDATE_TOL}")
+    log(f"  replay against the eager step from the same state (alpha "
+        f"{REPLAY_ALPHA}, lr {REPLAY_LR}, the capture's 0.5, {LR}): losses "
+        f"within rtol {STEP_LOSS_RTOL}; updates of {len(ratios)} tensors "
+        + ("bit for bit" if bitwise else
+           f"within {UPDATE_TOL} (largest |replay - eager| / |eager| "
+           f"{max(ratios):.2e}; largest element error / largest element "
+           f"of the eager update {worst:.2e})"))
+    return {"params_bitwise": bitwise, "tensors_moved": len(ratios),
+            "update_err_over_norm": max(ratios),
+            "update_err_over_max": worst}
 
 
 def step_against_cpu(torch, device="cuda"):
@@ -801,7 +990,7 @@ def step_against_cpu(torch, device="cuda"):
     for dev in ("cpu", device):
         G, D = paper_models(torch, dev)
         state = init_state(G, D, seed=SEED)
-        builder = TrainStepBuilder(G, D)
+        builder = TrainStepBuilder(G, D, cuda_graphs=False)
         it = iter(draws)
 
         def noise(kind, shape, it=it, dev=dev):
@@ -856,6 +1045,228 @@ def step_against_cpu(torch, device="cuda"):
     return {"loss_rel_err": loss_err, "grad_err_over_max": worst}
 
 
+# The progressive run (phase 9): the paper configuration on 1024 px
+# SyntheticDataset items, every stage cut to CLI_LOD images stable and
+# CLI_LOD fading, the first run stopped at CLI_STOP kimg (in depth 7's
+# stable phase) and resumed to CLI_TOTAL kimg: depth 8 fades for 16 steps
+# of 3 images and then runs 8 stable steps.
+CLI_LOD = 48
+CLI_STOP = 0.7
+CLI_TOTAL = (16 * CLI_LOD + 8 * 3) / 1000
+
+
+def cli_argv(root, total_kimg, *extra):
+    return ["--dataset_class", "SyntheticDataset",
+            "--SyntheticDataset.resolution", "1024",
+            "--SyntheticDataset.num_items", "24",
+            "--postprocessors", "['ImageSaver']",
+            "--DepthManager.lod_training_nimg", str(CLI_LOD),
+            "--DepthManager.lod_transition_nimg", str(CLI_LOD),
+            "--DepthManager.tick_kimg_default", str(2 * CLI_LOD / 1000),
+            "--DepthManager.tick_kimg_overrides", "{}",
+            "--SaverPlugin.network_snapshot_ticks", "2",
+            "--image_snapshot_ticks", "3", "--lr_rampup_kimg", "0.4",
+            "--device_input_prep", "True", "--num_data_workers", "4",
+            "--random_seed", str(SEED), "--result_dir", str(root),
+            "--total_kimg", str(total_kimg), *extra]
+
+
+def schedule_steps(start_nimg, stop_kimg):
+    """Steps of each (depth, batch, fade) key from ``start_nimg`` until the
+    trainer stops at ``stop_kimg``, by the port's schedule with the
+    paper's per-depth batches; and the image count it stops at."""
+    from pggan_tpu_torch.training.schedule import (depth_alpha_schedule,
+                                                   minibatch_for_depth)
+    steps, nimg = collections.Counter(), start_nimg
+    while nimg < stop_kimg * 1000:
+        depth, alpha = depth_alpha_schedule(nimg, TRAIN_DEPTH, CLI_LOD,
+                                            CLI_LOD)
+        batch = minibatch_for_depth(depth)
+        steps[(depth, batch, alpha < 1.0)] += 1
+        nimg += batch
+    return steps, nimg
+
+
+def cli_phase(torch):
+    """A progressive run of the paper configuration through
+    ``python -m pggan_tpu_torch.cli.train`` from depth 0, stopped at
+    CLI_STOP kimg, then resumed in this process with ``--resume_network
+    latest`` to CLI_TOTAL kimg: its restored state held bit for bit against
+    the checkpoint, every kernel of the step launched, every stage's fade
+    and stable graph captured, finite losses. Returns the numbers, the
+    resumed run's launch counts (its eager calls) and the kernels its
+    replays ran (each graph's captured kernels times its replays)."""
+    import ast
+    import glob
+    import re
+    import numpy as np
+    from pggan_tpu_torch import checkpoint
+    from pggan_tpu_torch.cli import train as cli
+    from pggan_tpu_torch.ops import _build
+    from pggan_tpu_torch.training.plugins import AbsoluteTimeMonitor
+    want_keys = {(0, 16, False)} | {
+        (d, {6: 14, 7: 6, 8: 3}.get(d, 16), fade)
+        for d in range(1, TRAIN_DEPTH + 1) for fade in (True, False)}
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "pggan_tpu_torch.cli.train",
+             *cli_argv(root, CLI_STOP)],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+        out["first_run_s"] = time.perf_counter() - t0
+        lines = [ln for ln in res.stdout.splitlines()
+                 if ln.startswith(("tick ", "CUDA graphs", "[SaverPlugin]"))]
+        for ln in lines:
+            log(f"    {ln}")
+        if res.returncode != 0:
+            log(res.stderr[-4000:])
+            raise AssertionError(f"the train CLI exited {res.returncode}")
+        m = re.search(r"fade\) (\[.*\]); peak device memory (\d+) B",
+                      res.stdout)
+        first_keys, out["first_run_peak_bytes"] = (
+            set(ast.literal_eval(m.group(1))), int(m.group(2)))
+        run1, = glob.glob(os.path.join(root, "001-*"))
+        state_path, = glob.glob(os.path.join(run1, "training-state-*.dat"))
+        sd, nimg, iterations, base_time = checkpoint.load_training_state(
+            state_path)
+        steps1, stop1 = schedule_steps(0, CLI_STOP)
+        steps2, _ = schedule_steps(nimg, CLI_TOTAL)
+        if nimg != stop1 or first_keys != {k for k, n in steps1.items()
+                                           if n >= 2}:
+            raise AssertionError(f"first run: stopped at {nimg} (schedule "
+                                 f"{stop1}), graphs {sorted(first_keys)}")
+        ticks = sum(ln.startswith("tick ") for ln in lines)
+        saves = sum(ln.startswith("[SaverPlugin]") for ln in lines)
+
+        # the resume, in this process: the state held against the file
+        params = cli.get_structured_params(vars(cli.build_parser().parse_args(
+            cli_argv(root, CLI_TOTAL, "--resume_network", "latest"))))
+        trainer, logger, total = cli.build(params)
+        try:
+            got = checkpoint.training_state_dict(trainer.state)
+            same = compare_state(got, sd)
+            monitor, = [p for *_k, p in trainer.plugin_queues["epoch"]
+                        if isinstance(p, AbsoluteTimeMonitor)]
+            if not same or (trainer.cur_nimg, trainer.iterations,
+                            monitor.base_time) != (nimg, iterations,
+                                                   base_time):
+                raise AssertionError("the resumed state differs from the "
+                                     "checkpoint")
+            log(f"  resumed at {nimg} images, {iterations} iterations, "
+                f"clock {base_time:.3f} s: parameters, both Adams (moments "
+                f"and count), the generator state and the clock equal the "
+                f"checkpoint bit for bit")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            trainer.run(total)
+            torch.cuda.synchronize()
+            out["resumed_run_s"] = time.perf_counter() - t0
+            # the wrapper's launches: each key's eager first call (a
+            # capture records its kernels in CAPTURED instead); the
+            # replays run the captured kernels without a wrapper call
+            launches = dict(_build.LAUNCHES)
+            out["resumed_run_peak_bytes"] = torch.cuda.max_memory_allocated()
+            builder = trainer.builder
+            second_keys = set(builder.graphed_keys())
+            replayed = collections.Counter()
+            for key in second_keys:
+                step = builder.step_fn(*key)
+                for name, n in step.captured.items():
+                    replayed[name] += n * step.replays
+            out["launches_eager"] = launches
+            out["kernels_run_in_replays"] = dict(replayed)
+            if second_keys != {k for k, n in steps2.items() if n >= 2}:
+                raise AssertionError(f"resumed run: graphs "
+                                     f"{sorted(second_keys)}")
+            if first_keys | second_keys != want_keys:
+                raise AssertionError("the run missed a stage's graph: "
+                                     f"{sorted(want_keys - first_keys)}")
+            depth8 = {k: builder.step_fn(*k).replays + 1
+                      for k in second_keys if k[0] == TRAIN_DEPTH}
+            if len(depth8) != 2 or min(depth8.values()) < 4:
+                raise AssertionError(f"depth-8 steps {depth8}")
+            # launches of replayed trainer iterations (past the run's end)
+            out["python_launches_per_replayed_iteration"] = replay_launches(
+                torch, trainer, _build)
+        finally:
+            if hasattr(trainer.dataiter, "close"):
+                trainer.dataiter.close()
+            logger.close()
+        run2, = [d for d in glob.glob(os.path.join(root, "00*-*"))
+                 if d != run1]
+        rows = [json.loads(ln) for d in (run1, run2)
+                for ln in open(os.path.join(d, "metrics.jsonl"))]
+        last = rows[-1]
+        if not all(math.isfinite(last[f"{k}.epoch_mean"]) for k in cli.LOSSES):
+            raise AssertionError(f"last tick's losses {last}")
+        # the resumed run trains at depths 7 and 8 only: its samples are
+        # OutputGenerator's output there
+        samples = glob.glob(os.path.join(run2, "fakes_*.png"))
+        if ticks < 4 or saves < 2 or not samples:
+            raise AssertionError(f"first run: {ticks} ticks, {saves} "
+                                 f"checkpoints; resumed run: samples "
+                                 f"{samples}")
+    per_depth = collections.defaultdict(list)
+    for r in rows:
+        per_depth[int(r["depth"])].append(r["sec.kimg"])
+    out.update({
+        "graphs_captured": len(first_keys) + len(second_keys),
+        "ticks": len(rows), "depth8_steps": {str(k): v
+                                             for k, v in depth8.items()},
+        "sec_per_kimg_by_depth": {d: v for d, v in sorted(per_depth.items())},
+        "first_run_ticks": ticks, "first_run_checkpoints": saves})
+    log(f"  sec/kimg per tick by the depth it ended at: "
+        + "; ".join(f"{d}: {', '.join(f'{x:.1f}' for x in v)}"
+                    for d, v in sorted(per_depth.items())))
+    log(f"  graphs captured: {out['graphs_captured']} ({len(first_keys)} + "
+        f"{len(second_keys)}); depth-8 steps {depth8}; peak device memory "
+        f"{out['first_run_peak_bytes'] / 2**30:.2f} / "
+        f"{out['resumed_run_peak_bytes'] / 2**30:.2f} GiB (first / resumed "
+        f"run); launches from Python per replayed trainer iteration "
+        f"{out['python_launches_per_replayed_iteration']:.1f}")
+    return out, launches, replayed
+
+
+def compare_state(a, b) -> bool:
+    """Two training state dicts hold the same keys and the same bits."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(compare_state(a[k], b[k])
+                                            for k in a)
+    if a is None or b is None:
+        return a is b
+    if isinstance(a, int):
+        return a == b
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        a.tobytes() == b.tobytes()
+
+
+def replay_launches(torch, trainer, _build, iterations: int = 3) -> float:
+    """Host calls that queue work on the card (kernel launches, copies,
+    graph launches) per trainer iteration whose step is a replay, from the
+    profiler's host events; no kernel wrapper may run in them."""
+    from torch.profiler import ProfilerActivity, profile
+    before = dict(_build.LAUNCHES)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iterations):
+            trainer.train()
+        torch.cuda.synchronize()
+    if dict(_build.LAUNCHES) != before:
+        raise AssertionError("a replayed iteration called a kernel wrapper")
+    host = collections.Counter(e.name for e in prof.events()
+                               if e.device_type
+                               == torch.autograd.DeviceType.CPU
+                               and e.name in HOST_LAUNCHES)
+    log(f"  a replayed trainer iteration's host launches: "
+        f"{ {k: v / iterations for k, v in host.items()} }")
+    return sum(host.values()) / iterations
+
+
 # device kernels by source, for the profile (first match wins)
 KERNEL_GROUPS = (
     ("chain kernel", ("chain_kernel", "chain_split")),
@@ -869,37 +1280,72 @@ KERNEL_GROUPS = (
     ("elementwise and copies", ("elementwise", "copy", "fill", "cat")),
     ("device-to-host copy", ("Memcpy DtoH",)),
 )
+# the groups of the kernels in csrc/ that a train step runs
+OUR_GROUPS = ("conv3x3 kernel", "conv3x3_dw kernel", "upsample / pool kernels")
 
 
 def profile_phase(torch, steps: int = 2):
     """``torch.profiler`` over ``steps`` warm depth-8 train steps of each
-    graph (fade, stable): device time summed by kernel name and group,
-    device busy share (the union of kernel intervals over the host window
-    of the synchronised steps), and launches."""
+    graph (fade, stable), eager and replayed as CUDA graphs: device time
+    summed by kernel name and group, device busy share (the union of
+    kernel intervals over the host window of the synchronised steps), and
+    the launches the host issued. A replay must run the kernels of the
+    eager step: per step, as many of each hand-written kernel group on the
+    card, and the graph's captured wrapper calls equal to the eager step's
+    launches."""
     from torch.profiler import ProfilerActivity, profile
+    from pggan_tpu_torch.ops import _build
     from pggan_tpu_torch.training import TrainStepBuilder, init_state
     G, D = paper_models(torch, "cuda")
-    state, builder = init_state(G, D, seed=SEED), TrainStepBuilder(G, D)
-    prep = builder.prep_fn()
-    u8 = uint8_reals(torch, builder, TRAIN_DEPTH, SEED).cuda()
-    out = {}
-    for fade in (True, False):
-        alpha = 0.5 if fade else 1.0
-        step = builder.step_fn(TRAIN_DEPTH, TRAIN_BATCH, fade)
-        for _ in range(2):  # warm-up
-            step(state, prep(u8, alpha), alpha, LR, LR)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
+    state = init_state(G, D, seed=SEED)
+    out, wrapper_calls = {}, {}
+    for route in ("eager", "graphed"):
+        builder = TrainStepBuilder(G, D, cuda_graphs=route == "graphed")
+        prep = builder.prep_fn()
+        u8 = uint8_reals(torch, builder, TRAIN_DEPTH, SEED).cuda()
+        for fade in (True, False):
+            alpha = 0.5 if fade else 1.0
+            step = builder.step_fn(TRAIN_DEPTH, TRAIN_BATCH, fade)
+            for _ in range(2):  # warm-up; the graphed route's capture
                 step(state, prep(u8, alpha), alpha, LR, LR)
+            reals = prep(u8, alpha)
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        graph = "fade" if fade else "stable"
-        out[graph] = device_profile(torch, prof, wall_ms, steps, graph,
-                                    "step")
+            launches = dict(_build.LAUNCHES)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    step(state, reals, alpha, LR, LR)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            graph = f"{route}_{'fade' if fade else 'stable'}"
+            out[graph] = device_profile(torch, prof, wall_ms, steps, graph,
+                                        "step")
+            wrapper_calls[graph] = (
+                {k: (n - launches.get(k, 0)) / steps
+                 for k, n in _build.LAUNCHES.items()
+                 if n != launches.get(k, 0)}
+                if route == "eager" else dict(step.captured))
+    for graph in ("fade", "stable"):
+        eager, replay = out[f"eager_{graph}"], out[f"graphed_{graph}"]
+        ours = {g: eager["kernels_per_step_by_group"].get(g, 0)
+                for g in OUR_GROUPS}
+        theirs = {g: replay["kernels_per_step_by_group"].get(g, 0)
+                  for g in OUR_GROUPS}
+        calls = (wrapper_calls[f"eager_{graph}"],
+                 wrapper_calls[f"graphed_{graph}"])
+        log(f"  {graph}: hand-written kernels on the card a step, eager "
+            f"{ours}, replayed {theirs}; wrapper calls a step, eager "
+            f"{calls[0]}, captured {calls[1]}")
+        if ours != theirs or not all(ours.values()) or calls[0] != calls[1]:
+            raise AssertionError(f"{graph}: the replay ran other kernels "
+                                 f"than the eager step")
     return out
+
+
+# host calls that put work on the card's queue
+HOST_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                 "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
 
 
 def device_profile(torch, prof, wall_ms, per, tag, unit) -> dict:
@@ -918,21 +1364,31 @@ def device_profile(torch, prof, wall_ms, per, tag, unit) -> dict:
         if b > end:
             busy_us += b - max(a, end)
             end = b
-    groups = collections.Counter()
+    host = sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CPU
+               and e.name in HOST_LAUNCHES)
+    groups, counts = collections.Counter(), collections.Counter()
+    group_of = {}
     for name, ms in by_name.items():
-        group = next((g for g, keys in KERNEL_GROUPS
-                      if any(k in name for k in keys)), "other")
-        groups[group] += ms / per
+        group_of[name] = next((g for g, keys in KERNEL_GROUPS
+                               if any(k in name for k in keys)), "other")
+        groups[group_of[name]] += ms / per
+    for e in kernels:
+        counts[group_of[e.name]] += 1
     log(f"  {tag}: {wall_ms / per:.1f} ms a {unit}, device busy "
         f"{busy_us / 1e3 / per:.1f} ms ({busy_us / 1e3 / wall_ms:.1%}), "
-        f"{len(kernels) / per:.0f} launches and copies")
+        f"{len(kernels) / per:.0f} kernels and copies on the card, "
+        f"{host / per:.0f} launches from the host")
     for g, ms in groups.most_common():
         log(f"    {g:24s} {ms:8.3f} ms")
     return {f"wall_ms_per_{unit}": wall_ms / per,
             f"device_busy_ms_per_{unit}": busy_us / 1e3 / per,
             "device_busy_share": busy_us / 1e3 / wall_ms,
             f"launches_per_{unit}": len(kernels) / per,
+            f"host_launches_per_{unit}": host / per,
             f"ms_per_{unit}_by_group": dict(groups.most_common()),
+            f"kernels_per_{unit}_by_group": {g: n / per
+                                             for g, n in counts.items()},
             f"top_kernels_ms_per_{unit}": {
                 n: ms / per for n, ms in by_name.most_common(12)}}
 
@@ -974,28 +1430,23 @@ def main() -> int:
 
     # phase 4: the slice, through the CLI
     log("phase 4: serve a random paper-config snapshot (depth 8, 1024 px)")
-    launches, rate, serve_prof = serve_phase(torch, card)
+    serve_launches, rate, serve_prof = serve_phase(torch, card)
     for name in SERVE_KERNELS:
-        if launches[name] == 0:
+        if serve_launches[name] == 0:
             raise AssertionError(f"{name} was never launched by the serve")
     log(f"phase 4 passed ({time.perf_counter() - t_start:.0f} s so far)")
 
-    # phase 5: train the paper configuration at depth 8
+    # phase 5: train the paper configuration at depth 8, eager and graphed
     log(f"phase 5: train the paper configuration, depth 8 (1024 px), batch "
         f"{TRAIN_BATCH}, on {card}")
     train, train_launches, call_log = train_phase(torch)
-    for name, n in train_launches.items():
-        launches[name] += n
+    train["graphs"] = graph_phase(torch)
     log(f"phase 5 passed ({time.perf_counter() - t_start:.0f} s so far)")
 
     # phase 6: every kernel call of one train step against its plain version
     log("phase 6: kernels vs plain versions at every shape of one depth-8 "
         "fade train step (timed sums per step)")
-    gp_dw_ms = checks.train_shapes(call_log.calls, call_log.gp_dw)
-    train["gp_unused_dw"] = {"launches": sum(call_log.gp_dw.values()),
-                             "ms": gp_dw_ms}
-    log(f"  unused D weight gradients inside the GP: "
-        f"{sum(call_log.gp_dw.values())} calls, {gp_dw_ms:.3f} ms a step")
+    checks.train_shapes(call_log.calls)
     log(f"phase 6 passed ({time.perf_counter() - t_start:.0f} s so far)")
 
     # phase 7: a depth-6 step on the card against the CPU plain route
@@ -1005,20 +1456,43 @@ def main() -> int:
 
     # phase 8: where the device time of a depth-8 train step goes
     log(f"phase 8: torch.profiler over warm depth-8 train steps, batch "
-        f"{TRAIN_BATCH}")
+        f"{TRAIN_BATCH}, eager and replayed")
     profile = profile_phase(torch)
     log(f"phase 8 passed ({time.perf_counter() - t_start:.0f} s so far)")
+
+    # phase 9: the progressive run through the train CLI, and its resume
+    log(f"phase 9: progressive run of the paper configuration through the "
+        f"train CLI, depth 0 to {TRAIN_DEPTH}, stopped at {CLI_STOP} kimg "
+        f"and resumed to {CLI_TOTAL} kimg")
+    train["progressive_run"], run_launches, replayed = cli_phase(torch)
+    log(f"  the resumed run's kernel launches (eager first calls): "
+        f"{run_launches}; kernels run in its replays: {dict(replayed)}")
+    for name in TRAIN_KERNELS:
+        if not run_launches.get(name) or not replayed.get(name):
+            raise AssertionError(f"{name} was never launched by the resumed "
+                                 f"run, or never replayed")
+    log(f"phase 9 passed ({time.perf_counter() - t_start:.0f} s so far)")
 
     # the result lines. ms, plain_ms, library_ms and the bounds: per
     # depth-8 fade train step (batch 3) for the kernels the step runs, per
     # depth-8 serve forward (batch 16) for the serve-only chain
+    # launches: the wrapper's launches on the three paths, each counted
+    # from zero (phase 4's serves, phase 5's eager steps, phase 9's resumed
+    # run); by path beside it, with the kernels phase 9's replays ran
     kernels = []
     for name, (src, rep) in KERNELS.items():
         per_step = name in TRAIN_KERNELS
         t = checks.sums["train" if per_step else "serve"][name]
+        by_path = {"serve": serve_launches.get(name, 0),
+                   "train_step_eager": train_launches.get(name, 0),
+                   "progressive_run": run_launches.get(name, 0),
+                   "progressive_run_replayed": replayed.get(name, 0)}
+        log(f"  {name}: launches by path {by_path}")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches[name], "max_abs_err": checks.err[name],
+            "launches": sum(v for k, v in by_path.items()
+                            if k != "progressive_run_replayed"),
+            "launches_by_path": by_path, "max_abs_err": checks.err[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "library_ms": t["library_ms"] if "library_ms" in t else None,
             "bound_ms": t["bound_ms"],
@@ -1026,7 +1500,7 @@ def main() -> int:
                          >= t["operations_bound_ms"] else "operations"),
             "fma_bound_ms": t["fma_bound_ms"],
             **({"unchained_ms": t["unchained_ms"]} if name in SERVE_ONLY
-               else {}),
+               else {"burst_ms": t["burst_ms"]}),
             "per": "train_step_depth8" if per_step else "serve_forward_depth8"})
     print(json.dumps({"serve": {"img_per_s": rate, "depth": 8,
                                 "batch": BATCH, "profile": serve_prof,

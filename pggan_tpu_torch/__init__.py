@@ -7,9 +7,12 @@ Every Pallas kernel on a ported path is a hand-written CUDA kernel under
 ``csrc/``, built with ``nvcc`` at first use (``ops/_build.py``); each has a
 plain PyTorch version beside it that CPU tensors take. Ported so far: the
 serving path (snapshot -> Generator -> ``python -m
-pggan_tpu_torch.cli.generate``) and the WGAN-GP train step
+pggan_tpu_torch.cli.generate``), the WGAN-GP train step
 (``training.TrainStepBuilder``: Discriminator, losses, Adam, and the
-gradient penalty's double backward through the kernels).
+gradient penalty's double backward through the kernels; on the card a CUDA
+graph per (depth, batch, fade)) and the progressive training loop around it
+(``training.Trainer`` and its plugins, checkpoints, the in-memory datasets,
+``python -m pggan_tpu_torch.cli.train``).
 """
 
 __version__ = "0.2.0"

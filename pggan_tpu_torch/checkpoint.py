@@ -1,4 +1,5 @@
-"""Generator snapshots, in the JAX package's file format.
+"""Model snapshots in the JAX package's file format, and training states
+in the port's own.
 
 A snapshot is the pickle that ``pggan_tpu/checkpoint.py:save_snapshot``
 writes: the model class, its constructor config, the parameters as a
@@ -8,7 +9,14 @@ in both packages; ``params_from_jax`` and ``params_to_jax`` convert the tree
 to the port's OIHW tensors and back, exactly; ``d_params_from_jax`` and
 ``d_params_to_jax`` do the same for the Discriminator. File names follow the
 reference layout ``network-snapshot-{generator|discriminator}-{kimg:06}.dat``.
-The training-state half of the JAX module comes with the training port.
+
+A training state (``training-state-{kimg:06}.dat``) holds what an exact
+resume needs beyond the snapshots (``pggan_tpu/checkpoint.py:125-146``):
+G's and D's parameters, both Adam states (``mu``, ``nu``, ``count``), the
+G EMA, the state's ``torch.Generator`` state, and the trainer's clock. It is
+the port's own pickle of plain dicts of numpy arrays keyed by parameter
+name, with no torch class inside: ``framework: "pggan_tpu_torch"``.
+``training_state_from_jax`` converts a JAX package's training state to it.
 """
 
 from __future__ import annotations
@@ -21,8 +29,9 @@ import re
 import numpy as np
 import torch
 
+from pggan_tpu_torch.models import discriminator, generator
 from pggan_tpu_torch.models.discriminator import Discriminator
-from pggan_tpu_torch.models.generator import CONFIG_FIELDS, Generator
+from pggan_tpu_torch.models.generator import Generator
 
 _LAYERS = ("c1", "c2", "torgb")
 _D_LAYERS = ("fromrgb", "c1", "c2")
@@ -95,41 +104,59 @@ def d_params_to_jax(D: Discriminator) -> dict:
                 "b": D.linear["b"].detach().cpu().numpy().copy()}}
 
 
-def model_config(model: Generator) -> dict:
-    """Constructor kwargs for rebuilding a Generator, with ``latent_size``
-    resolved (the JAX package's ``model_config``)."""
-    return {f: getattr(model, f) for f in CONFIG_FIELDS}
+# model class -> (its module's constructor fields, params to and from the
+# JAX tree)
+_MODELS = {
+    "Generator": (Generator, generator.CONFIG_FIELDS, params_to_jax,
+                  params_from_jax),
+    "Discriminator": (Discriminator, discriminator.CONFIG_FIELDS,
+                      d_params_to_jax, d_params_from_jax),
+}
 
 
-def save_snapshot(path: str, model: Generator, depth: int,
-                  alpha: float) -> None:
+def model_config(model) -> dict:
+    """Constructor kwargs for rebuilding a Generator or Discriminator, with
+    ``latent_size`` resolved (the JAX package's ``model_config``)."""
+    return {f: getattr(model, f) for f in _MODELS[type(model).__name__][1]}
+
+
+def save_snapshot(path: str, model, depth: int, alpha: float) -> None:
+    """A Generator or Discriminator snapshot, in the JAX package's format."""
     payload = {
         "framework": "pggan_tpu_torch",
         "format_version": 1,
         "model_class": type(model).__name__,
         "config": model_config(model),
-        "params": params_to_jax(model),
+        "params": _MODELS[type(model).__name__][2](model),
         "depth": int(depth),
         "alpha": float(alpha),
     }
     _atomic_dump(payload, path)
 
 
-def load_snapshot(path: str, device=None):
-    """Returns ``(model, meta)``: the Generator rebuilt from its saved
-    config, with the saved parameters, on ``device``. Only generator
-    snapshots load in this slice of the port. Unpickles the file: load only
-    snapshots you or your training runs wrote."""
+def load_model_snapshot(path: str, device=None):
+    """Returns ``(model, meta)``: the Generator or Discriminator rebuilt from
+    its saved config, with the saved parameters, on ``device``. Unpickles
+    the file: load only snapshots you or your training runs wrote."""
     with open(path, "rb") as f:
         payload = pickle.load(f)
-    if payload["model_class"] != "Generator":
-        raise ValueError(f"{path}: a {payload['model_class']} snapshot; the "
-                         "port loads Generator snapshots only")
-    model = Generator(**payload["config"])
-    model.load_state_dict(params_from_jax(payload["params"]))
+    cls, _fields, _to_jax, from_jax = _MODELS[payload["model_class"]]
+    model = cls(**payload["config"])
+    model.load_state_dict(from_jax(payload["params"]))
     model.to(device)
     meta = {k: payload[k] for k in ("depth", "alpha", "model_class")}
     return model, meta
+
+
+def load_snapshot(path: str, device=None):
+    """``load_model_snapshot`` for a Generator snapshot, the serving path's
+    model; other snapshots raise."""
+    with open(path, "rb") as f:
+        model_class = pickle.load(f)["model_class"]
+    if model_class != "Generator":
+        raise ValueError(f"{path}: a {model_class} snapshot; serving loads "
+                         "Generator snapshots only")
+    return load_model_snapshot(path, device)
 
 
 def snapshot_kimg(path: str) -> int:
@@ -170,3 +197,108 @@ def resolve_generator_path(path: str, result_dir: str = "results",
         if ema:
             return ema
     return best
+
+
+# -- training states ------------------------------------------------------------
+
+def _numpy(module) -> dict:
+    return {k: v.detach().cpu().numpy().copy()
+            for k, v in module.named_parameters()}
+
+
+def _adam(opt, module) -> dict:
+    names = [k for k, _ in module.named_parameters()]
+    return {"mu": {k: t.cpu().numpy().copy() for k, t in zip(names, opt.mu)},
+            "nu": {k: t.cpu().numpy().copy() for k, t in zip(names, opt.nu)},
+            "count": int(opt.count)}
+
+
+def training_state_dict(state) -> dict:
+    """A ``TrainState`` as plain dicts of numpy arrays keyed by parameter
+    name (the payload's ``state``)."""
+    return {
+        "G": _numpy(state.G), "D": _numpy(state.D),
+        "g_opt": _adam(state.g_opt, state.G),
+        "d_opt": _adam(state.d_opt, state.D),
+        "g_ema": None if state.g_ema is None else _numpy(state.g_ema),
+        "generator": state.generator.get_state().numpy().copy(),
+    }
+
+
+@torch.no_grad()
+def restore_training_state(state, sd: dict) -> None:
+    """Copy a ``training_state_dict`` into ``state``'s tensors in place,
+    bit for bit. A G EMA in ``sd`` goes into ``state.g_ema`` when the state
+    keeps one. ``sd["generator"]`` None leaves the generator as it is."""
+    def load(module, arrays):
+        for k, p in module.named_parameters():
+            p.copy_(torch.from_numpy(arrays[k]))
+
+    def load_opt(opt, module, d):
+        for name, mu, nu in zip([k for k, _ in module.named_parameters()],
+                                opt.mu, opt.nu):
+            mu.copy_(torch.from_numpy(d["mu"][name]))
+            nu.copy_(torch.from_numpy(d["nu"][name]))
+        opt.count.fill_(int(d["count"]))
+
+    load(state.G, sd["G"])
+    load(state.D, sd["D"])
+    load_opt(state.g_opt, state.G, sd["g_opt"])
+    load_opt(state.d_opt, state.D, sd["d_opt"])
+    if state.g_ema is not None and sd.get("g_ema") is not None:
+        load(state.g_ema, sd["g_ema"])
+    if sd.get("generator") is not None:
+        state.generator.set_state(torch.from_numpy(sd["generator"]))
+
+
+def save_training_state(path: str, state, cur_nimg: int, iterations: int,
+                        base_time: float = 0.0) -> None:
+    payload = {
+        "framework": "pggan_tpu_torch",
+        "format_version": 1,
+        "state": training_state_dict(state),
+        "cur_nimg": int(cur_nimg),
+        "iterations": int(iterations),
+        "base_time": float(base_time),
+    }
+    _atomic_dump(payload, path)
+
+
+def load_training_state(path: str):
+    """Returns ``(state dict, cur_nimg, iterations, base_time)``, as the JAX
+    package's ``load_training_state`` does; ``base_time`` is the run's
+    cumulative wall-clock seconds at the save, for ``AbsoluteTimeMonitor``.
+    Unpickles the file: load only states your training runs wrote."""
+    with open(path, "rb") as f:
+        payload = pickle.load(f)
+    if payload.get("framework") != "pggan_tpu_torch":
+        raise ValueError(f"{path}: not a pggan_tpu_torch training state "
+                         "(convert a JAX one with training_state_from_jax)")
+    return (payload["state"], payload["cur_nimg"], payload["iterations"],
+            float(payload.get("base_time", 0.0)))
+
+
+def training_state_from_jax(jstate) -> dict:
+    """A JAX package's ``TrainState`` (its leaves as numpy arrays: the
+    params trees, optax ``ScaleByAdamState(count, mu, nu)`` for each
+    optimizer, the PRNG key, the optional G EMA) as the port's training
+    state dict. The moments convert like the parameters they belong to. The
+    JAX threefry key has no Philox counterpart: ``generator`` is None, so
+    ``restore_training_state`` keeps the port's seeded generator, and the
+    two packages draw different latents from there on."""
+    def as_np(tree):
+        return {k: v.numpy() for k, v in tree.items()}
+
+    def opt(o, from_jax):
+        return {"mu": as_np(from_jax(o.mu)), "nu": as_np(from_jax(o.nu)),
+                "count": int(np.asarray(o.count))}
+
+    return {
+        "G": as_np(params_from_jax(jstate.g_params)),
+        "D": as_np(d_params_from_jax(jstate.d_params)),
+        "g_opt": opt(jstate.g_opt, params_from_jax),
+        "d_opt": opt(jstate.d_opt, d_params_from_jax),
+        "g_ema": (None if getattr(jstate, "g_ema", None) is None
+                  else as_np(params_from_jax(jstate.g_ema))),
+        "generator": None,
+    }

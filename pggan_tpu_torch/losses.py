@@ -12,7 +12,10 @@ differentiates through it a second time: the 3x3 conv, its weight
 gradient and the resample pair are autograd Functions whose backward is
 built from the kernels again (``ops/conv3x3.py``, ``ops/resample.py``).
 Minibatch-stddev couples the samples, so the per-sample input gradients
-are those of the summed score, exactly as in the reference.
+are those of the summed score, exactly as in the reference. That inner
+``autograd.grad`` runs inside ``input_grad_only()``: like JAX's VJP with
+respect to ``xhat`` alone, it takes no D weight gradients, which nothing
+would use.
 
 ``d_fn(x)`` and ``g_fn(z)`` are the critic and the generator at the step's
 depth and alpha; ``d_pair_fn(x2)`` scores ``cat([reals, fakes])`` in one
@@ -23,6 +26,8 @@ from __future__ import annotations
 
 import torch
 
+from pggan_tpu_torch.ops.conv3x3 import input_grad_only
+
 
 def calc_gradient_penalty(d_fn, real, fake, mix_eps,
                           iwass_lambda: float = 10.0,
@@ -31,7 +36,9 @@ def calc_gradient_penalty(d_fn, real, fake, mix_eps,
     ``mix_eps`` is (N,)."""
     eps = mix_eps.reshape((-1,) + (1,) * (real.ndim - 1)).to(real.dtype)
     mixed = (real * (1.0 - eps) + fake * eps).detach().requires_grad_(True)
-    grads, = torch.autograd.grad(d_fn(mixed).sum(), mixed, create_graph=True)
+    score = d_fn(mixed).sum()
+    with input_grad_only():
+        grads, = torch.autograd.grad(score, mixed, create_graph=True)
     grads = grads.reshape(grads.shape[0], -1)
     norms = torch.sqrt(torch.sum(torch.square(grads), dim=1) + 1e-12)
     return torch.square(norms - iwass_target) * (iwass_lambda

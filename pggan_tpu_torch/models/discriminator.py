@@ -33,6 +33,7 @@ from pggan_tpu_torch.ops.primitives import (
     equalized_conv2d,
     equalized_conv2d_pool_in,
     equalized_dense,
+    f32_scalar,
     minibatch_stddev,
     nf,
 )
@@ -182,7 +183,7 @@ class Discriminator(nn.Module):
                              f"[0, {self.max_depth}]")
         blocks, n = self.blocks, len(self.blocks)
         x = x.to(torch.float32)
-        alpha = torch.as_tensor(alpha, dtype=torch.float32, device=x.device)
+        alpha = f32_scalar(alpha, x.device)
         span = self._pallas_span(depth)
         if span > 0:
             h = self._pallas_head(x, depth, alpha, fade, span)

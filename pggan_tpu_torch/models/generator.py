@@ -28,6 +28,7 @@ from pggan_tpu_torch.ops.primitives import (
     conv_init,
     equalized_conv2d,
     equalized_conv2d_up2x,
+    f32_scalar,
     nf,
     pixelnorm,
     upsample_nearest_2x,
@@ -193,7 +194,7 @@ class Generator(nn.Module):
         if not (0 <= depth <= self.max_depth):
             raise ValueError(f"depth {depth} out of range "
                              f"[0, {self.max_depth}]")
-        alpha = torch.as_tensor(alpha, dtype=torch.float32, device=z.device)
+        alpha = f32_scalar(alpha, z.device)
         h = z.reshape(z.shape[0], z.shape[-1], 1, 1).to(torch.float32)
         if self.normalize_latents:
             h = pixelnorm(h, self.eps)

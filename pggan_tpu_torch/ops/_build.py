@@ -6,15 +6,19 @@ The sources have a plain C interface and are compiled with ``nvcc`` for
 torch's headers takes minutes. Each source compiles in its own ``nvcc``
 process, all started together, and the objects are linked once. The
 library's name carries a hash of the sources and flags, so an edit never
-reuses a stale build. The build directory, ``pggan_tpu_torch/csrc/build``,
-is not committed.
+reuses a stale build. The build goes to ``pggan_tpu_torch/csrc/build``
+(not committed) where the package directory is writable, and otherwise
+(an installed package) to ``$PGGAN_TORCH_CACHE``, or
+``~/.cache/pggan_tpu_torch`` when that is unset.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; a
 launch the card refuses (too much shared memory, too many threads) never
 runs and would not show in ``torch.cuda.synchronize()``, so ``launch``
 raises on any nonzero code. ``launch`` also counts each launch by kernel
 name in ``LAUNCHES``, which is how a run shows that its main path went
-through the kernels.
+through the kernels. A call made while the stream is being captured into
+a CUDA graph only records the kernel, which then runs at each replay
+without a call: it counts in ``CAPTURED`` instead.
 """
 
 from __future__ import annotations
@@ -33,7 +37,6 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = CSRC / "build"
 SOURCES = ("conv3x3.cu", "conv3x3_dw.cu", "conv_chain.cu", "upsample2x.cu",
            "avgpool2x.cu")
 HEADERS = ("epilogue.cuh", "split_weights.cuh", "tf32_mma.cuh")
@@ -61,6 +64,8 @@ _SIGNATURES = {
 
 # launches per kernel name; chip_smoke.py zeroes it around the main path
 LAUNCHES: collections.Counter = collections.Counter()
+# kernels recorded into CUDA graphs per kernel name (run at each replay)
+CAPTURED: collections.Counter = collections.Counter()
 _lib = None
 # each C entry point's ctypes function, its argtypes set, on first launch
 _ENTRY: dict = {}
@@ -78,6 +83,16 @@ def _nvcc() -> str:
                        "toolkit")
 
 
+def build_dir() -> Path:
+    """Where the library is built: ``csrc/build`` beside the sources when
+    the package directory can be written, else a per-user cache."""
+    local = CSRC / "build"
+    if os.access(local if local.exists() else CSRC, os.W_OK):
+        return local
+    return Path(os.environ.get("PGGAN_TORCH_CACHE")
+                or Path.home() / ".cache" / "pggan_tpu_torch")
+
+
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES + HEADERS:
@@ -87,14 +102,16 @@ def _digest() -> str:
 
 
 def _compile(out: Path) -> None:
-    """nvcc each source to an object in parallel, then link one library.
-    ptxas's register and shared-memory report goes to ``<source>.log``."""
+    """nvcc each source to an object in parallel, then link one library
+    beside ``out``. ptxas's register and shared-memory report goes to
+    ``<source>.log`` there."""
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    build = out.parent
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
         procs = []
         for name in SOURCES:
             obj = Path(tmp) / (name + ".o")
-            log = open(BUILD_DIR / (name + ".log"), "w")
+            log = open(build / (name + ".log"), "w")
             cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c",
                    str(CSRC / name), "-o", str(obj)]
             procs.append((name, obj, log,
@@ -106,7 +123,7 @@ def _compile(out: Path) -> None:
                 failed.append(name)
             log.close()
         if failed:
-            texts = [(BUILD_DIR / (n + ".log")).read_text()[-4000:]
+            texts = [(build / (n + ".log")).read_text()[-4000:]
                      for n in failed]
             raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                                + "\n".join(texts))
@@ -122,9 +139,10 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    path = BUILD_DIR / f"libpggan_kernels-{_digest()}.so"
-    with open(BUILD_DIR / "lock", "w") as lock:
+    build = build_dir()
+    build.mkdir(parents=True, exist_ok=True)
+    path = build / f"libpggan_kernels-{_digest()}.so"
+    with open(build / "lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not path.exists():
             _compile(path)
@@ -155,7 +173,7 @@ def ptxas_report() -> dict:
     (registers, spill store bytes)}}."""
     report = {}
     for name in SOURCES:
-        text = (BUILD_DIR / (name + ".log")).read_text()
+        text = (build_dir() / (name + ".log")).read_text()
         entries = re.split(r"Compiling entry function '", text)[1:]
         report[name] = {}
         for entry in entries:
@@ -184,9 +202,15 @@ def _current_stream() -> int:
     return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
+def _capturing() -> bool:
+    """Whether the current stream is being captured into a CUDA graph."""
+    return torch._C._cuda_isCurrentStreamCapturing()
+
+
 def launch(name: str, fn: str, *args) -> None:
     """Call C entry point ``fn`` on the current stream (appended as the last
-    argument), raise if the launch failed, and count it under ``name``.
+    argument), raise if the launch failed, and count it under ``name``
+    (in ``CAPTURED`` while a graph capture records it).
     The ctypes function is looked up and typed on the first call only, so
     a launch costs one dictionary lookup and the foreign call on the host."""
     f = _ENTRY.get(fn) or _entry(fn)
@@ -194,7 +218,7 @@ def launch(name: str, fn: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: CUDA error {err} "
                            f"({library().pggan_error_string(err).decode()})")
-    LAUNCHES[name] += 1
+    (CAPTURED if _capturing() else LAUNCHES)[name] += 1
 
 
 def check_kernel_inputs(*tensors: torch.Tensor) -> None:

@@ -27,7 +27,11 @@ gradient penalty can differentiate D's input gradient a second time:
 ``conv3x3`` and ``conv3x3_dw`` transpose into each other, and the fused
 epilogues take the activation mask from the sign of the output and close on
 pixelnorm's ``r``. A term whose input needs no gradient is skipped
-(``ctx.needs_input_grad``, fixed at forward time).
+(``ctx.needs_input_grad``, fixed at forward time). Inside
+``input_grad_only()`` the conv Functions' backward takes no weight or bias
+gradient either: the gradient penalty's inner ``autograd.grad`` asks only
+for the input gradient, and the weights' second-order terms come from the
+graph of that input gradient, not from these skipped terms.
 
 Both kernels run on the H100's tensor cores: ``mma.sync`` m16n8k8 in TF32
 with each f32 operand split into two TF32 values, a = hi + lo, and each
@@ -46,6 +50,7 @@ in two deterministic passes. Design notes in the sources.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -236,16 +241,40 @@ def _mask(g, o, slope):
     return torch.where(o >= 0, g, g * slope)
 
 
+# Set while a backward needs only the conv inputs' gradient (see
+# ``input_grad_only``). Module-level, not thread-local: on the card the
+# autograd engine runs the backward on its own device thread.
+_INPUT_GRAD_ONLY = False
+
+
+@contextlib.contextmanager
+def input_grad_only():
+    """While inside, the conv Functions' backward computes gx only, no gw
+    and no gb: for an ``autograd.grad`` with respect to activations alone,
+    whose weight gradients nothing would read. ``ctx.needs_input_grad``
+    cannot say so: it is fixed when the forward runs. The flag is read when
+    the backward runs, so the second-order terms that a later backward takes
+    through the recorded gx are untouched."""
+    global _INPUT_GRAD_ONLY
+    before, _INPUT_GRAD_ONLY = _INPUT_GRAD_ONLY, True
+    try:
+        yield
+    finally:
+        _INPUT_GRAD_ONLY = before
+
+
 def _conv_grads(ctx, x, w, gy, bias: bool):
     """gx, gw (and gb) of ``conv3x3(x, w) (+ b)`` for output cotangent gy,
-    skipping the inputs that need no gradient."""
+    skipping the inputs that need no gradient, and gw and gb inside
+    ``input_grad_only()``."""
     need = ctx.needs_input_grad
+    weights = not _INPUT_GRAD_ONLY
     gy = gy.contiguous()
     gx = conv3x3(gy, flip_io(w)) if need[0] else None
-    gw = conv3x3_dw(x, gy) if need[1] else None
+    gw = conv3x3_dw(x, gy) if need[1] and weights else None
     if not bias:
         return gx, gw
-    return gx, gw, (gy.sum((0, 1, 3)) if need[2] else None)
+    return gx, gw, (gy.sum((0, 1, 3)) if need[2] and weights else None)
 
 
 class _Conv3x3(torch.autograd.Function):

@@ -30,6 +30,16 @@ def he_constant(fan_in: int, gain: float = math.sqrt(2.0)) -> float:
     return gain / math.sqrt(fan_in)
 
 
+def f32_scalar(value, device) -> torch.Tensor:
+    """``value`` as a 0-d float32 tensor on ``device``. A tensor passes
+    through, so that a CUDA graph reads its value at every replay; a Python
+    number is written by a fill on the device, where ``torch.as_tensor``
+    would copy it from the host and wait for the card to get there."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device=device, dtype=torch.float32)
+    return torch.full((), float(value), dtype=torch.float32, device=device)
+
+
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
     return torch.where(x >= 0, x, x * negative_slope)
 
@@ -58,18 +68,22 @@ def minibatch_stddev(x: torch.Tensor, eps: float = 1e-8,
     return torch.cat([x, tile], dim=1)
 
 
+# The resample kernels take contiguous tensors. ``F.conv2d`` may return a
+# channels-last layout when its input's strides fit both layouts, as a
+# one-channel (N, 1, H, W) image's do; ``contiguous`` is free otherwise.
+
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2x spatial upsample, NCHW (reference
     network.py:127)."""
     from pggan_tpu_torch.ops.resample import upsample_2x
-    return upsample_2x(x, h_axis=2, w_axis=3)
+    return upsample_2x(x.contiguous(), h_axis=2, w_axis=3)
 
 
 def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
     """2x2 stride-2 average pool, NCHW (``F.avg_pool2d(h, 2)``, reference
     network.py:229), on the pool kernel for a CUDA tensor."""
     from pggan_tpu_torch.ops.resample import avg_pool_2x as pool
-    return pool(x, h_axis=2, w_axis=3)
+    return pool(x.contiguous(), h_axis=2, w_axis=3)
 
 
 def conv_init(generator: torch.Generator, ksize: int, ch_in: int, ch_out: int,

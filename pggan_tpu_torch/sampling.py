@@ -6,6 +6,13 @@ zero latents to the same shape and sliced after the forward, so every
 chunk runs the same shapes. A stable snapshot (alpha == 1) serves the
 fade-free graph. Latents are drawn chunk by chunk from a numpy
 ``RandomState``, in the same order as the JAX package.
+
+On the card each chunk's images go to the host by an asynchronous copy
+into one of two pinned buffers, and the host waits for that copy only
+after it has issued the next chunk's forward, so the copy and the host's
+work overlap the card's; a copy from the device into pageable memory
+would hold the host until it ended. On the CPU there is no copy to pin and
+the chunks are taken as they come.
 """
 
 from __future__ import annotations
@@ -44,16 +51,53 @@ def sample_images(G, depth, alpha, num_samples, *, minibatch=0, rng=None):
                          f"got chunk={chunk}")
     device = next(G.parameters()).device
 
-    outs = []
-    done = 0
-    with torch.inference_mode():
+    def forwards():
+        """(images on the device, how many of them to keep) per chunk."""
+        done = 0
         while done < num_samples:
             take = min(chunk, num_samples - done)
             z = random_latents(take, G.latent_size, rng)
             if take < chunk:  # fixed shapes: pad, run, slice
                 z = np.concatenate(
                     [z, np.zeros((chunk - take, G.latent_size), z.dtype)])
-            imgs = G(torch.from_numpy(z).to(device), depth, alpha, fade=fade)
-            outs.append(imgs[:take].cpu().numpy())
+            # non_blocking: a blocking upload would wait for the card
+            z = torch.from_numpy(z).to(device, non_blocking=True)
+            yield G(z, depth, alpha, fade=fade), take
             done += take
-    return np.concatenate(outs) if len(outs) > 1 else outs[0]
+
+    with torch.inference_mode():
+        if device.type != "cuda":
+            outs = [imgs[:take].cpu().numpy() for imgs, take in forwards()]
+            return np.concatenate(outs) if len(outs) > 1 else outs[0]
+        return _pinned_gather(forwards(), num_samples)
+
+
+def _pinned_gather(chunks, num_samples: int) -> np.ndarray:
+    """Copy each chunk's images into the host array through two pinned
+    buffers. Chunk i's copy is issued behind its forward; then the host
+    waits for chunk i - 1's copy and moves it into the result. So chunk
+    i + 1's forward is issued before the host waits for chunk i's copy, and
+    a buffer is written again only after its last copy was moved out."""
+    out = pinned = prev = None
+    row = 0
+    for i, (imgs, take) in enumerate(chunks):
+        if out is None:
+            out = np.empty((num_samples, *imgs.shape[1:]), np.float32)
+            pinned = [torch.empty(imgs.shape, dtype=imgs.dtype,
+                                  pin_memory=True) for _ in range(2)]
+        buf = pinned[i % 2]
+        buf[:take].copy_(imgs[:take], non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        if prev is not None:
+            _drain(out, *prev)
+        prev = (event, buf, take, row)
+        row += take
+    _drain(out, *prev)
+    return out
+
+
+def _drain(out, event, buf, take, row) -> None:
+    """Wait for one chunk's copy and move it into rows ``row:row+take``."""
+    event.synchronize()
+    out[row:row + take] = buf[:take].numpy()

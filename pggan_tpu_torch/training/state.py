@@ -10,7 +10,10 @@ package.
 the learning rate applied per step as ``p - lr * direction``
 (``state.py:36-61``), written out on ``torch._foreach_*`` ops and updating
 the parameters in place. Defaults are the reference's
-``Adam(betas=(0.0, 0.99))`` override (train.py:195) and eps 1e-8.
+``Adam(betas=(0.0, 0.99))`` override (train.py:195) and eps 1e-8. Its step
+count, the learning rate and both bias corrections live in device tensors
+and are computed there, so a step captured into a CUDA graph reads them at
+every replay instead of baking in the values of the step it recorded.
 """
 
 from __future__ import annotations
@@ -18,7 +21,6 @@ from __future__ import annotations
 import copy
 import dataclasses
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -32,29 +34,37 @@ class Adam:
         self.b1, self.b2, self.eps = float(b1), float(b2), float(eps)
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
-        self.count = 0
+        device = self.params[0].device
+        # optax's count, int32; the lr a step was given, when it was a number
+        self.count = torch.zeros((), dtype=torch.int32, device=device)
+        self._lr = torch.zeros((), dtype=torch.float32, device=device)
 
     @torch.no_grad()
     def step(self, grads, lr) -> None:
         """``mu = b1 mu + (1 - b1) g``, ``nu = b2 nu + (1 - b2) g^2``,
         ``p -= lr * mu_hat / (sqrt(nu_hat) + eps)`` with the bias
-        corrections ``1 - b^t`` taken in float32, as optax takes them."""
-        self.count += 1
+        corrections ``1 - b^t`` taken in float32 on the device, as optax
+        takes them. ``lr`` is a number or a 0-d float32 device tensor; a
+        number is written into a device tensor first."""
+        if not isinstance(lr, torch.Tensor):
+            self._lr.fill_(float(lr))
+            lr = self._lr
+        self.count.add_(1)
+        t = self.count.to(torch.float32)
+        bc1 = 1.0 - torch.pow(self.b1, t)
+        bc2 = 1.0 - torch.pow(self.b2, t)
         b1, b2 = self.b1, self.b2
         grads = list(grads)
         torch._foreach_mul_(self.mu, b1)
         torch._foreach_add_(self.mu, grads, alpha=1.0 - b1)
         torch._foreach_mul_(self.nu, b2)
         torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - b2)
-        one = np.float32(1.0)
-        bc1 = float(one - np.float32(b1) ** np.float32(self.count))
-        bc2 = float(one - np.float32(b2) ** np.float32(self.count))
         den = torch._foreach_div(self.nu, bc2)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self.eps)
         upd = torch._foreach_div(self.mu, bc1)
         torch._foreach_div_(upd, den)
-        torch._foreach_mul_(upd, float(lr))
+        torch._foreach_mul_(upd, lr)
         torch._foreach_sub_(self.params, upd)
 
 

@@ -341,6 +341,7 @@ def test_launch_resolves_each_entry_point_once(monkeypatch):
     monkeypatch.setattr(_build, "_lib", stub)
     monkeypatch.setattr(_build, "_ENTRY", {})
     monkeypatch.setattr(_build, "_current_stream", lambda: 7)
+    monkeypatch.setattr(_build, "_capturing", lambda: False)
     monkeypatch.setattr(_build, "LAUNCHES", _build.collections.Counter())
     for _ in range(3):
         _build.launch("upsample2x", "pggan_upsample2x", 1, 2, 1, 2, 3, 4)
@@ -368,7 +369,24 @@ def test_failed_launch_raises_and_is_not_counted(monkeypatch):
     monkeypatch.setattr(_build, "_lib", stub)
     monkeypatch.setattr(_build, "_ENTRY", {"pggan_upsample2x": failing})
     monkeypatch.setattr(_build, "_current_stream", lambda: 0)
+    monkeypatch.setattr(_build, "_capturing", lambda: False)
     monkeypatch.setattr(_build, "LAUNCHES", _build.collections.Counter())
     with pytest.raises(RuntimeError, match="stub error"):
         _build.launch("upsample2x", "pggan_upsample2x", 0, 0, 1, 1, 1, 1)
     assert not _build.LAUNCHES
+
+
+def test_launch_under_graph_capture_counts_as_captured(monkeypatch):
+    """A call while a CUDA graph is captured records the kernel for the
+    replays and launches nothing: it counts in CAPTURED, not LAUNCHES."""
+    stub = _StubLibrary()
+    monkeypatch.setattr(_build, "_lib", stub)
+    monkeypatch.setattr(_build, "_ENTRY", {})
+    monkeypatch.setattr(_build, "_current_stream", lambda: 7)
+    monkeypatch.setattr(_build, "LAUNCHES", _build.collections.Counter())
+    monkeypatch.setattr(_build, "CAPTURED", _build.collections.Counter())
+    for capturing in (True, True, False):
+        monkeypatch.setattr(_build, "_capturing", lambda c=capturing: c)
+        _build.launch("avgpool2x", "pggan_avgpool2x", 1, 2, 1, 2, 3, 4)
+    assert dict(_build.CAPTURED) == {"avgpool2x": 2}
+    assert dict(_build.LAUNCHES) == {"avgpool2x": 1}

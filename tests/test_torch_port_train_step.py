@@ -36,6 +36,7 @@ Bars, float32 throughout:
   parameters must agree within 2 lr per update.
 """
 
+import contextlib
 import copy
 import functools
 
@@ -202,6 +203,63 @@ def test_d_and_g_losses_and_gradients_match_jax():
         _hold_grads(_as_tree(mod, grads, to_jax), want)
 
 
+def _d_loss_grads():
+    """D and its loss's parameter gradients at the reference inputs."""
+    ref = _jax_losses_and_grads()
+    G, D = _port_models()
+    z, mix, real = (torch.from_numpy(ref[k]) for k in ("z", "mix", "real"))
+    d_cost, _ = losses.wgan_gp_D_loss(
+        lambda x: D(x, DEPTH, ALPHA, True), lambda zz: G(zz, DEPTH, ALPHA, True),
+        real, z, mix, d_pair_fn=lambda x2: D(x2, DEPTH, ALPHA, True,
+                                             stat_groups=2))
+    grads = torch.autograd.grad(d_cost, list(D.parameters()),
+                                allow_unused=True, materialize_grads=True)
+    return D, grads
+
+
+def test_gp_takes_no_weight_gradient(monkeypatch):
+    """Inside the gradient penalty's inner ``autograd.grad`` the conv
+    Functions compute no weight gradient (no ``conv3x3_dw`` call), and D's
+    gradients are the same as when they did, and match JAX."""
+    from pggan_tpu_torch.ops import conv3x3
+    dw_fwd, scope = conv3x3._dw_fwd, losses.input_grad_only
+    inside = [False]
+    counts = {"inside": 0, "outside": 0}
+
+    def spy(x, ct):
+        counts["inside" if inside[0] else "outside"] += 1
+        return dw_fwd(x, ct)
+
+    def watched(real_scope):
+        @contextlib.contextmanager
+        def gp_scope():
+            inside[0] = True
+            try:
+                with real_scope():
+                    yield
+            finally:
+                inside[0] = False
+        return gp_scope
+
+    monkeypatch.setattr(conv3x3, "_dw_fwd", spy)
+    runs = {}
+    for name, real_scope in (("repaired", scope),
+                             ("as before", contextlib.nullcontext)):
+        monkeypatch.setattr(losses, "input_grad_only", watched(real_scope))
+        counts.update(inside=0, outside=0)
+        runs[name] = (*_d_loss_grads(), dict(counts))
+    D, grads, repaired = runs["repaired"]
+    _, before_grads, before = runs["as before"]
+    assert repaired["inside"] == 0 and repaired["outside"] > 0
+    # one weight gradient per D head conv was taken and thrown away before
+    assert before["inside"] == 2 * D._pallas_span(DEPTH) > 0
+    assert before["outside"] == repaired["outside"]
+    for a, b in zip(grads, before_grads):
+        assert torch.equal(a, b)
+    _hold_grads(_as_tree(D, grads, d_params_to_jax),
+                _jax_losses_and_grads()["d_grads"])
+
+
 def _hold_grads(got_tree, want_tree):
     got = jax.tree_util.tree_leaves_with_path(got_tree)
     for (path, a), b in zip(got, jax.tree_util.tree_leaves(want_tree)):
@@ -235,6 +293,55 @@ def test_adam_matches_optax():
                                    atol=1e-9)
         np.testing.assert_allclose(adam.nu[0].numpy(),
                                    np.asarray(state.nu), rtol=1e-6)
+
+
+def _host_adam_step(adam, grads, lr, count):
+    """Adam as the port ran it before its step scalars moved to the
+    device: bias corrections and lr as host floats."""
+    one = np.float32(1.0)
+    bc1 = float(one - np.float32(adam.b1) ** np.float32(count))
+    bc2 = float(one - np.float32(adam.b2) ** np.float32(count))
+    torch._foreach_mul_(adam.mu, adam.b1)
+    torch._foreach_add_(adam.mu, grads, alpha=1.0 - adam.b1)
+    torch._foreach_mul_(adam.nu, adam.b2)
+    torch._foreach_addcmul_(adam.nu, grads, grads, value=1.0 - adam.b2)
+    den = torch._foreach_div(adam.nu, bc2)
+    torch._foreach_sqrt_(den)
+    torch._foreach_add_(den, adam.eps)
+    upd = torch._foreach_div(adam.mu, bc1)
+    torch._foreach_div_(upd, den)
+    torch._foreach_mul_(upd, float(lr))
+    torch._foreach_sub_(adam.params, upd)
+
+
+@pytest.mark.parametrize("b1", [0.0, 0.5])
+def test_adam_device_scalars_match_host_floats_and_optax(b1):
+    """The count, lr and bias corrections as device tensors: the same bits
+    as host floats, with the lr given as a number or as a 0-d tensor, and
+    optax's ``scale_by_adam`` within float32 rounding."""
+    import optax
+    rng = np.random.RandomState(4)
+    p0 = rng.randn(6, 5).astype(np.float32)
+    opt = optax.scale_by_adam(b1=b1, b2=0.99, eps=1e-8)
+    jp, jstate = jnp.asarray(p0), opt.init(jnp.asarray(p0))
+    as_number, as_tensor, host = (Adam([torch.from_numpy(p0.copy())], b1=b1)
+                                  for _ in range(3))
+    for count, (lr, scale) in enumerate(((1e-3, 1.0), (2e-3, 1e-7),
+                                         (5e-4, 10.0), (1e-3, 0.1),
+                                         (3e-3, 1.0)), 1):
+        g = torch.from_numpy((rng.randn(6, 5) * scale).astype(np.float32))
+        as_number.step([g], lr)
+        as_tensor.step([g], torch.tensor(lr, dtype=torch.float32))
+        with torch.no_grad():
+            _host_adam_step(host, [g], lr, count)
+        upd, jstate = opt.update(jnp.asarray(g.numpy()), jstate, jp)
+        jp = apply_updates(jp, upd, lr)
+        for adam in (as_number, as_tensor):
+            assert int(adam.count) == count
+            assert torch.equal(adam.params[0], host.params[0])
+            assert torch.equal(adam.nu[0], host.nu[0])
+        np.testing.assert_allclose(as_number.params[0].numpy(),
+                                   np.asarray(jp), rtol=1e-6, atol=1e-9)
 
 
 # -- whole steps -----------------------------------------------------------------
