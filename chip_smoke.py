@@ -11,9 +11,15 @@ at depth 8, eagerly and as CUDA graph replays (the replay held against the
 eager step), holds every kernel against its plain version at every shape
 one train step gives it, holds a depth-6 train step against the same step
 on the CPU, profiles warm depth-8 train steps (device time by kernel,
-device busy share, launches from the host), and last runs a progressive
-training run from depth 0 to 8 through ``pggan_tpu_torch.cli.train``,
-stopped short and resumed from its checkpoint.
+device busy share, launches from the host), runs a progressive training
+run from depth 0 to 8 through ``pggan_tpu_torch.cli.train``, stopped
+short and resumed from its checkpoint, then trains a one-channel 512 px
+sound model on seeded WAVs (their STFT images made on the card and held
+against the host path) with the SoundSaver's Griffin-Lim on the card,
+serves it through the generate CLI's SoundSaver (Griffin-Lim held against
+the CPU), and last builds an image folder's disk pyramid through the
+host library and scores the depth-8 snapshot with
+``pggan_tpu_torch.cli.eval`` (SWD and MS-SSIM held against the CPU).
 
     python3 chip_smoke.py
 
@@ -29,6 +35,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -66,14 +73,18 @@ STEP_GRAD_TOL = dict(rtol=1e-3, scaled_atol=1e-2)
 
 # a replayed depth-8 step against the eager step from the same state and
 # draws: the update each tensor took, |replay - eager| / |eager| in the
-# 2-norm, at most 1e-3. The two routes run the same kernels, so the
-# gradients differ by f32 summation order at most; Adam's division by
+# 2-norm, at most 1e-3. Both run with cuDNN's deterministic algorithms
+# (its default ones for the low-resolution convs' gradients may sum with
+# atomics, so two eager steps from one state differ from run to run, by as
+# much as the bar: phase 5 logs by how much), so the two routes run the
+# same kernels and the gradients could differ by f32 summation order at
+# most; Adam's division by
 # sqrt(nu) passes that noise on in full for the few elements whose
 # gradient is a cancellation, so the bar is on each tensor's norm, not
 # its largest element. A wrong update is far outside: none at all is 1;
 # the compared step takes an alpha and learning rates other than the
 # capture's, so a baked-in lr is at least 0.4; a bias correction one step
-# stale is 1.8e-2 at the step count there (25, b2 0.99).
+# stale is 1.6e-2 at the step count there (28, b2 0.99).
 UPDATE_TOL = 1e-3
 REPLAY_ALPHA, REPLAY_LR = 0.3, (0.6e-3, 0.3e-3)
 
@@ -862,9 +873,10 @@ def graph_phase(torch, steps: int = 6):
     """The depth-8 step of each graph, eager and as CUDA graph replays:
     ``steps`` calls each (the graphed route's first call eager, its second
     the capture and first replay), wall ms of a synchronised call, median
-    of the last ``steps - 2``; then one replay held against the eager step
-    from a copy of the same state, generator and inputs."""
-    from pggan_tpu_torch import checkpoint
+    of the last ``steps - 2``; then two eager steps from copies of one
+    state against each other (cuDNN's default algorithms: the noise), and
+    a replay against the eager step from copies of one state, generator
+    and inputs, with cuDNN held to its deterministic algorithms."""
     from pggan_tpu_torch.training import TrainStepBuilder, init_state
     median = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
     G, D = paper_models(torch, "cuda")
@@ -901,44 +913,96 @@ def graph_phase(torch, steps: int = 6):
                 line += f"; capture {step.capture_s:.3f} s"
             log(line)
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
-    # one replay against the eager step from the same state and draws, at
-    # an alpha and learning rates other than the capture's
+    del builders
+    # cuDNN's default algorithms for the low-resolution convs' gradients
+    # may sum with atomics, so two eager steps from one state need not
+    # agree: measured here, then one replay against the eager step with
+    # cuDNN held to its deterministic algorithms in both (a graph captured
+    # for it), at an alpha and learning rates other than the capture's
+    reals = prep(uint8_reals(torch, TrainStepBuilder(G, D), TRAIN_DEPTH,
+                             SEED + 20).cuda(), REPLAY_ALPHA)
+    noise = twin_updates(torch, state, reals, G, D)
+    out["eager_vs_eager_default_cudnn"] = noise
+    log("  two eager steps from the same state with cuDNN's default "
+        "algorithms: updates " + (
+            "bit for bit" if noise["params_bitwise"] else
+            f"apart by up to {noise['update_err_over_norm']:.2e} of a "
+            f"tensor's norm (largest element error / largest element "
+            f"{noise['update_err_over_max']:.2e})"))
+    torch.backends.cudnn.deterministic = True
+    try:
+        graphed = TrainStepBuilder(G, D).step_fn(TRAIN_DEPTH, TRAIN_BATCH,
+                                                 True)
+        for _ in range(2):  # eager, then the capture and its first replay
+            graphed(state, prep(u8, 0.5), 0.5, LR, LR)
+        replay = twin_updates(torch, state, reals, G, D, graphed)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if replay["loss_rel_err"] > STEP_LOSS_RTOL:
+        raise AssertionError(f"replay against eager: losses "
+                             f"{replay['loss_rel_err']:.2e} apart, bar "
+                             f"{STEP_LOSS_RTOL}")
+    if replay["update_err_over_norm"] > UPDATE_TOL:
+        raise AssertionError(f"replayed step's updates: largest |replay - "
+                             f"eager| / |eager| "
+                             f"{replay['update_err_over_norm']:.2e} over "
+                             f"{replay['tensors_moved']} tensors, bar "
+                             f"{UPDATE_TOL}")
+    log(f"  replay against the eager step from the same state (alpha "
+        f"{REPLAY_ALPHA}, lr {REPLAY_LR}, the capture's 0.5, {LR}; cuDNN's "
+        f"deterministic algorithms): losses within rtol {STEP_LOSS_RTOL}; "
+        f"updates of {replay['tensors_moved']} tensors "
+        + ("bit for bit" if replay["params_bitwise"] else
+           f"within {UPDATE_TOL} (largest |replay - eager| / |eager| "
+           f"{replay['update_err_over_norm']:.2e}; largest element error / "
+           f"largest element of the eager update "
+           f"{replay['update_err_over_max']:.2e})"))
+    out["replay_vs_eager"] = replay
+    del G, D, state, graphed
+    torch.cuda.empty_cache()
+    return out
+
+
+def twin_updates(torch, state, reals, G, D, graphed=None):
+    """One depth-8 fade step at REPLAY_ALPHA and REPLAY_LR taken from
+    ``state`` by ``graphed`` (or, without it, by an eager step of G and D)
+    and by an eager step of a twin restored from the same state: the
+    losses' largest relative difference, and the parameter updates
+    compared by ``update_errors``. The generators must end in one state.
+    ``state`` takes the step."""
+    from pggan_tpu_torch import checkpoint
+    from pggan_tpu_torch.training import TrainStepBuilder, init_state
     G2, D2 = paper_models(torch, "cuda")
     twin = init_state(G2, D2, seed=SEED + 5)
     checkpoint.restore_training_state(
         twin, checkpoint.training_state_dict(state))
     eager = TrainStepBuilder(G2, D2, cuda_graphs=False).step_fn(
         TRAIN_DEPTH, TRAIN_BATCH, True)
-    reals = prep(uint8_reals(torch, builders["eager"], TRAIN_DEPTH,
-                             SEED + 20).cuda(), REPLAY_ALPHA)
+    first = graphed or TrainStepBuilder(G, D, cuda_graphs=False).step_fn(
+        TRAIN_DEPTH, TRAIN_BATCH, True)
     before = [p.detach().clone() for p in [*G.parameters(), *D.parameters()]]
-    got = builders["graphed"].step_fn(TRAIN_DEPTH, TRAIN_BATCH, True)(
-        state, reals, REPLAY_ALPHA, *REPLAY_LR)
-    got = {k: float(v) for k, v in got.items()}
+    got = {k: float(v) for k, v in
+           first(state, reals, REPLAY_ALPHA, *REPLAY_LR).items()}
     want = {k: float(v) for k, v in
             eager(twin, reals, REPLAY_ALPHA, *REPLAY_LR).items()}
-    loss_err = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
-                   for k in want)
-    if loss_err > STEP_LOSS_RTOL:
-        raise AssertionError(f"replay {got} against eager {want}")
     if not torch.equal(state.generator.get_state(),
                        twin.generator.get_state()):
-        raise AssertionError("replay and eager step left other generator "
-                             "states")
-    out["replay_vs_eager"] = {"loss_rel_err": loss_err,
-                              **compare_updates(
-                                  torch, before,
-                                  [*G.parameters(), *D.parameters()],
-                                  [*G2.parameters(), *D2.parameters()])}
-    del G, D, G2, D2, state, twin, builders, eager
-    torch.cuda.empty_cache()
+        raise AssertionError("the two steps left other generator states")
+    loss_err = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+                   for k in want)
+    out = {"loss_rel_err": loss_err,
+           **update_errors(torch, before, [*G.parameters(), *D.parameters()],
+                           [*G2.parameters(), *D2.parameters()])}
+    del G2, D2, twin
     return out
 
 
-def compare_updates(torch, before, got, want) -> dict:
-    """A replayed step's parameter updates (``got`` - ``before``) against
-    the eager step's (``want`` - ``before``) within UPDATE_TOL, tensor by
-    tensor; every tensor the eager step moved must have moved."""
+def update_errors(torch, before, got, want) -> dict:
+    """A step's parameter updates (``got`` - ``before``) against another's
+    (``want`` - ``before``), tensor by tensor: the largest |difference| /
+    |want's update| in the 2-norm and at the largest element, and whether
+    the parameters agree bit for bit. Every tensor the second step moved
+    must have moved in the first, and no other."""
     ratios, worst = [], 0.0
     bitwise = True
     for p0, p, q in zip(before, got, want):
@@ -947,22 +1011,13 @@ def compare_updates(torch, before, got, want) -> dict:
         ref = float(dq.norm())
         if ref == 0.0:
             if dp.any():
-                raise AssertionError("the replay moved a tensor that the "
-                                     "eager step left")
+                raise AssertionError("a step moved a tensor that the eager "
+                                     "step left")
             continue
         ratios.append(float((dp - dq).norm()) / ref)
         worst = max(worst, float((dp - dq).abs().max() / dq.abs().max()))
-    if not ratios or max(ratios) > UPDATE_TOL:
-        raise AssertionError(f"replayed step's updates: largest |replay - "
-                             f"eager| / |eager| {max(ratios, default=0):.2e}"
-                             f" over {len(ratios)} tensors, bar {UPDATE_TOL}")
-    log(f"  replay against the eager step from the same state (alpha "
-        f"{REPLAY_ALPHA}, lr {REPLAY_LR}, the capture's 0.5, {LR}): losses "
-        f"within rtol {STEP_LOSS_RTOL}; updates of {len(ratios)} tensors "
-        + ("bit for bit" if bitwise else
-           f"within {UPDATE_TOL} (largest |replay - eager| / |eager| "
-           f"{max(ratios):.2e}; largest element error / largest element "
-           f"of the eager update {worst:.2e})"))
+    if not ratios:
+        raise AssertionError("the eager step moved no parameter")
     return {"params_bitwise": bitwise, "tensors_moved": len(ratios),
             "update_err_over_norm": max(ratios),
             "update_err_over_max": worst}
@@ -1087,7 +1142,7 @@ def schedule_steps(start_nimg, stop_kimg):
     return steps, nimg
 
 
-def cli_phase(torch):
+def cli_phase(torch, keep_dir):
     """A progressive run of the paper configuration through
     ``python -m pggan_tpu_torch.cli.train`` from depth 0, stopped at
     CLI_STOP kimg, then resumed in this process with ``--resume_network
@@ -1095,7 +1150,8 @@ def cli_phase(torch):
     the checkpoint, every kernel of the step launched, every stage's fade
     and stable graph captured, finite losses. Returns the numbers, the
     resumed run's launch counts (its eager calls) and the kernels its
-    replays ran (each graph's captured kernels times its replays)."""
+    replays ran (each graph's captured kernels times its replays). Its
+    last generator snapshot is copied into ``keep_dir``."""
     import ast
     import glob
     import re
@@ -1198,6 +1254,10 @@ def cli_phase(torch):
             logger.close()
         run2, = [d for d in glob.glob(os.path.join(root, "00*-*"))
                  if d != run1]
+        # the resumed run's last snapshot (depth 8) for phase 11
+        out["snapshot"] = shutil.copy(max(glob.glob(os.path.join(
+            run2, "network-snapshot-generator-*.dat")), key=os.path.getmtime),
+            keep_dir)
         rows = [json.loads(ln) for d in (run1, run2)
                 for ln in open(os.path.join(d, "metrics.jsonl"))]
         last = rows[-1]
@@ -1265,6 +1325,432 @@ def replay_launches(torch, trainer, _build, iterations: int = 3) -> float:
     log(f"  a replayed trainer iteration's host launches: "
         f"{ {k: v / iterations for k, v in host.items()} }")
     return sum(host.values()) / iterations
+
+
+# The sound path (phase 10): 16 seeded WAVs at 16 kHz, each long enough for
+# a 512 x 512 abslog image at n_fft 1024, hop 128 (the defaults of
+# SoundImageDataset and SoundSaver, README's first example), trained at
+# the paper widths from depth 0 to depth 7 (512 px) on the phase-9
+# schedule, to SOUND_TOTAL kimg: 4 stable depth-7 steps of 6 images.
+SOUND_FILES = 16
+SOUND_RATE = 16000
+N_FFT, HOP = 1024, 128
+SOUND_DEPTH = 7
+SOUND_TOTAL = ((2 * SOUND_DEPTH + 1) * CLI_LOD + 4 * 6) / 1000
+# the STFT images, card against the per-file host path: JAX's own bar
+# (tests/test_data.py:160-172; cuFFT and pocketfft round apart, and an
+# image is truncated to uint8)
+IMG_MAX_LEVELS, IMG_MIN_EQUAL = 1, 0.98
+# Griffin-Lim on the card against the CPU from the same start: the
+# signals after GL_SHORT iterations within GL_SHORT_RTOL in the 2-norm;
+# after the SoundSaver's 100, the spectral convergence within 1 % of the
+# CPU's (the iteration does not contract, so the signals drift apart
+# while the fit to the magnitude stays as good)
+GL_SHORT, GL_SHORT_RTOL, GL_SC_RTOL = 8, 1e-3, 1e-2
+# the eval (phase 11): SWD per level card against the CPU with the same
+# draws and the same images; the reals' pairwise MS-SSIM likewise
+SWD_RTOL, MSSSIM_ATOL = 1e-3, 1e-4
+EVAL_SAMPLES, EVAL_MINIBATCH = 32, 16
+EVAL_RES = 1024  # the PNGs' side: the paper configuration's
+
+
+def sync(torch, device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def write_wavs(root) -> str:
+    """SOUND_FILES mono 16-bit WAVs of seeded chirps plus noise."""
+    import numpy as np
+    from pggan_tpu_torch.data.audio_io import write_wav
+    from pggan_tpu_torch.ops.stft import sound_image_signal_length
+    d = os.path.join(root, "wavs")
+    os.makedirs(d)
+    rng = np.random.RandomState(SEED)
+    n = sound_image_signal_length(N_FFT, HOP) + 1000
+    t = np.arange(n) / SOUND_RATE
+    for i in range(SOUND_FILES):
+        f0, f1 = rng.uniform(100, 4000, 2)
+        sig = np.sin(2 * np.pi * (f0 + (f1 - f0) * t / t[-1] / 2) * t)
+        sig += 0.05 * rng.randn(n)
+        write_wav(os.path.join(d, f"{i:03}.wav"), sig, SOUND_RATE)
+    return d
+
+
+def spy_griffin_lim(calls):
+    """Record the device, batch and iterations of each SoundSaver
+    Griffin-Lim call (the sound path must run it on the card)."""
+    from pggan_tpu_torch import postprocess
+    real = postprocess.griffin_lim_batch
+
+    def spy(mags, n_iter, *args, **kw):
+        calls.append((mags.device.type, tuple(mags.shape), n_iter))
+        return real(mags, n_iter, *args, **kw)
+    postprocess.griffin_lim_batch = spy
+    return lambda: setattr(postprocess, "griffin_lim_batch", real)
+
+
+def check_wavs(paths, tag) -> int:
+    import numpy as np
+    from pggan_tpu_torch.data.audio_io import read_wav
+    if not paths:
+        raise AssertionError(f"{tag}: no WAV written")
+    for p in paths:
+        sig, _ = read_wav(p)
+        if not np.all(np.isfinite(sig)) or np.abs(sig).max() < 0.5:
+            raise AssertionError(f"{tag}: {p} is silent or not finite")
+    return len(paths)
+
+
+def spectral_convergence(torch, x, mag):
+    from pggan_tpu_torch.ops.stft import stft
+    S = stft(x, N_FFT, HOP)[..., :mag.shape[-1]].abs()
+    return (torch.linalg.vector_norm(S - mag, dim=(1, 2))
+            / torch.linalg.vector_norm(mag, dim=(1, 2)))
+
+
+def sound_phase(torch, root, device="cuda"):
+    """Phase 10: the sound dataset's STFT images on the card against the
+    host path, a progressive run on them through the train CLI with the
+    ImageSaver and the SoundSaver (Griffin-Lim on the card), then the
+    generate CLI's SoundSaver on its snapshot, and Griffin-Lim on the
+    card against the CPU from the same start. Returns the numbers and
+    the launches of the two paths. ``device`` lets a scratch script
+    rehearse it on the CPU."""
+    import glob
+    import numpy as np
+    from pggan_tpu_torch.cli import generate as gen_cli
+    from pggan_tpu_torch.cli import train as cli
+    from pggan_tpu_torch.data.datasets import SoundImageDataset
+    from pggan_tpu_torch.ops import _build
+    from pggan_tpu_torch.ops.stft import griffin_lim_batch
+    from pggan_tpu_torch.postprocess import SoundSaver
+    out = {}
+    wav_dir = write_wavs(root)
+
+    # the batched STFT images: card, the CPU's torch route, the host path
+    ds = SoundImageDataset(wav_dir, n_fft=N_FFT, hop_length=HOP,
+                           preload=True, device=device)
+    card = ds.data[ds.max_dataset_depth]
+    host = np.stack([ds.load_file(i) for i in range(SOUND_FILES)])
+    diff = np.abs(card.astype(np.int16) - host.astype(np.int16))
+    equal = float((diff == 0).mean())
+    if card.shape != (SOUND_FILES, N_FFT // 2, N_FFT // 2, 1) or \
+            diff.max() > IMG_MAX_LEVELS or equal < IMG_MIN_EQUAL:
+        raise AssertionError(f"STFT images {card.shape}: card vs host "
+                             f"{diff.max()} levels apart, {equal:.4f} equal")
+    rates = {}
+    for route in (device, "cpu"):
+        ds.device = route
+        ds._load_files_chunk(0, SOUND_FILES)  # warm
+        t0 = time.perf_counter()
+        ds._load_files_chunk(0, SOUND_FILES)
+        rates[route] = SOUND_FILES / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for i in range(SOUND_FILES):
+        ds.load_file(i)
+    rates["host_numpy"] = SOUND_FILES / (time.perf_counter() - t0)
+    out["stft_images"] = {"max_levels_apart": int(diff.max()),
+                          "share_equal": equal, "files_per_s": rates}
+    log(f"  STFT images {card.shape[1:3]}: card vs host path {diff.max()} "
+        f"level(s) apart at most, {equal:.4%} equal; files/s (read, "
+        f"resample, STFT, remap) {device} {rates[device]:.1f}, CPU torch "
+        f"{rates['cpu']:.1f}, host numpy {rates['host_numpy']:.1f}")
+
+    # the progressive run, in this process so its launches count
+    gl_calls = []
+    restore = spy_griffin_lim(gl_calls)
+    argv = ["--dataset_class", "SoundImageDataset",
+            "--SoundImageDataset.dir_path", wav_dir,
+            "--SoundImageDataset.preload", "True",
+            "--SoundImageDataset.n_fft", str(N_FFT),
+            "--SoundImageDataset.hop_length", str(HOP),
+            "--postprocessors", "['ImageSaver','SoundSaver']",
+            "--SoundSaver.hop_length", str(HOP),
+            "--DepthManager.lod_training_nimg", str(CLI_LOD),
+            "--DepthManager.lod_transition_nimg", str(CLI_LOD),
+            "--DepthManager.tick_kimg_default", str(2 * CLI_LOD / 1000),
+            "--DepthManager.tick_kimg_overrides", "{}",
+            "--image_snapshot_ticks", "3", "--lr_rampup_kimg", "0.4",
+            "--device_input_prep", "True", "--num_data_workers", "4",
+            "--random_seed", str(SEED), "--result_dir",
+            os.path.join(root, "runs"), "--total_kimg", str(SOUND_TOTAL),
+            "--device", device]
+    try:
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        trainer = cli.main(cli.get_structured_params(
+            vars(cli.build_parser().parse_args(argv))))
+        sync(torch, device)
+        out["train_s"] = time.perf_counter() - t0
+    finally:
+        restore()
+    launches = dict(_build.LAUNCHES)
+    replayed = collections.Counter()
+    for key in trainer.builder.graphed_keys():
+        step = trainer.builder.step_fn(*key)
+        for name, n in step.captured.items():
+            replayed[name] += n * step.replays
+    run, = glob.glob(os.path.join(root, "runs", "001-*"))
+    rows = [json.loads(ln) for ln in open(os.path.join(run, "metrics.jsonl"))]
+    if trainer.depth != SOUND_DEPTH or not all(
+            math.isfinite(rows[-1][f"{k}.epoch_mean"]) for k in cli.LOSSES):
+        raise AssertionError(f"sound run ended at depth {trainer.depth}, "
+                             f"last tick {rows[-1]}")
+    wavs = glob.glob(os.path.join(run, "fakes_sound_*.wav"))
+    if glob.glob(os.path.join(run, "error_*.txt")) or not glob.glob(
+            os.path.join(run, "fakes_*.png")):
+        raise AssertionError("the run's samples: an error file, or no PNG")
+    if not gl_calls or any(dev != device or n != 100
+                           for dev, _s, n in gl_calls):
+        raise AssertionError(f"SoundSaver's Griffin-Lim calls {gl_calls}")
+    out.update(wavs=check_wavs(wavs, "train run"), ticks=len(rows),
+               griffin_lim_calls=len(gl_calls),
+               graphs_captured=len(trainer.builder.graphed_keys()))
+    log(f"  sound run: {len(rows)} ticks to depth {trainer.depth} in "
+        f"{out['train_s']:.1f} s, {out['graphs_captured']} graphs, "
+        f"{out['wavs']} WAVs from {len(gl_calls)} Griffin-Lim calls on the "
+        f"card (100 iterations each, last batch {gl_calls[-1][1]}); "
+        f"launches {launches}; kernels run in its replays {dict(replayed)}")
+    del trainer
+
+    # the generate CLI's SoundSaver on the run's last snapshot
+    snap = max(glob.glob(os.path.join(
+        run, "network-snapshot-generator-*.dat")))
+    samples = os.path.join(root, "generated")
+    gl_calls.clear()
+    restore = spy_griffin_lim(gl_calls)
+    try:
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        imgs = gen_cli.cli_main([
+            "--generator_path", snap, "--num_samples", "4",
+            "--postprocessors", "['SoundSaver']", "--SoundSaver.hop_length",
+            str(HOP), "--SoundSaver.samples_path", samples, "--device",
+            device])
+        out["generate_s"] = time.perf_counter() - t0
+    finally:
+        restore()
+    gen_launches = dict(_build.LAUNCHES)
+    if (device == "cuda" and not gen_launches.get("conv3x3_chain_pn")) \
+            or gl_calls != [(device, (4, N_FFT // 2 + 1, N_FFT // 2), 100)]:
+        raise AssertionError(f"generate: launches {gen_launches}, "
+                             f"Griffin-Lim {gl_calls}")
+    out["generated_wavs"] = check_wavs(
+        glob.glob(os.path.join(samples, "*.wav")), "generate")
+    log(f"  generate: {imgs.shape} images, {out['generated_wavs']} WAVs in "
+        f"{out['generate_s']:.2f} s; launches {gen_launches}")
+
+    # Griffin-Lim, card against the CPU from the SoundSaver's start
+    saver = SoundSaver(samples_path=samples, create_subdirs=False,
+                       device=device)
+    mags = np.stack([np.pad(im[0], ((0, 1), (0, 0))) for im in imgs])
+    mags = torch.from_numpy((mags + 1.0) * 127.5)  # drange -> 0..255
+    x0 = saver.initial_guess((mags.shape[2] - 1) * HOP)
+    gl = {}
+    for route in (device, "cpu"):
+        m, x = mags.to(route), x0.to(route)
+        short = griffin_lim_batch(m, GL_SHORT, HOP, x0=x)
+        griffin_lim_batch(m, 100, HOP, x0=x)  # warm
+        sync(torch, route)
+        t0 = time.perf_counter()
+        full = griffin_lim_batch(m, 100, HOP, x0=x)
+        sc = spectral_convergence(torch, full, m).cpu()
+        gl[route] = (short.cpu(), sc,
+                     (time.perf_counter() - t0) * 1e3 / len(mags))
+    rel = float(torch.linalg.vector_norm(gl[device][0] - gl["cpu"][0])
+                / torch.linalg.vector_norm(gl["cpu"][0]))
+    sc_gap = float(((gl[device][1] - gl["cpu"][1]).abs()
+                    / gl["cpu"][1]).max())
+    out["griffin_lim"] = {
+        f"rel_l2_after_{GL_SHORT}": rel,
+        "spectral_convergence_card": gl[device][1].tolist(),
+        "spectral_convergence_cpu": gl["cpu"][1].tolist(),
+        "ms_per_100_iterations_per_sample": {r: gl[r][2] for r in gl}}
+    log(f"  Griffin-Lim card vs CPU from one start: {rel:.2e} relative "
+        f"after {GL_SHORT} iterations; spectral convergence after 100 card "
+        f"{gl[device][1].tolist()} / CPU {gl['cpu'][1].tolist()} "
+        f"({sc_gap:.2e} apart); ms per 100 iterations a sample card "
+        f"{gl[device][2]:.2f}, CPU {gl['cpu'][2]:.1f}")
+    if rel > GL_SHORT_RTOL or sc_gap > GL_SC_RTOL:
+        raise AssertionError("Griffin-Lim card vs CPU out of bounds")
+    return out, launches, replayed, gen_launches
+
+
+def write_pngs(root) -> str:
+    """2 * EVAL_SAMPLES seeded RGB PNGs of EVAL_RES px, smooth random
+    patterns (a 16 x 16 grid scaled up), so they compress even at zlib's
+    fastest level (the default level took 38 s for the 64 at 1024 px)."""
+    import numpy as np
+    from PIL import Image
+    d = os.path.join(root, "pngs")
+    os.makedirs(d)
+    rng = np.random.RandomState(SEED + 1)
+    for i in range(2 * EVAL_SAMPLES):
+        grid = rng.randint(0, 256, (16, 16, 3), dtype=np.uint8)
+        Image.fromarray(grid).resize((EVAL_RES, EVAL_RES),
+                                     Image.BICUBIC).save(
+            os.path.join(d, f"{i:03}.png"), compress_level=1)
+    return d
+
+
+def eval_phase(torch, root, snapshot, device="cuda"):
+    """Phase 11: the image-folder dataset's disk pyramid built through the
+    host library and reopened from its cache, then the eval CLI on the
+    phase-9 depth-8 snapshot against it (SWD at 7 levels, 1024 -> 16 px,
+    real baseline, MS-SSIM), with the SWD and MS-SSIM of the same images
+    and draws held card against CPU. Returns the numbers and the eval's
+    launches."""
+    import importlib
+    import numpy as np
+    from pggan_tpu_torch.checkpoint import load_snapshot
+    from pggan_tpu_torch.data import native
+    from pggan_tpu_torch.data.datasets import (DefaultImageFolderDataset,
+                                               box_downsample)
+    from pggan_tpu_torch.ops import _build
+    from pggan_tpu_torch.sampling import sample_images
+    eval_cli = importlib.import_module("pggan_tpu_torch.cli.eval")
+    swd_module = importlib.import_module("pggan_tpu_torch.metrics.swd")
+    swd, swd_levels = swd_module.swd, swd_module.swd_levels
+    out = {}
+    t0 = time.perf_counter()
+    png_dir = write_pngs(root)
+    out["write_pngs_s"] = time.perf_counter() - t0
+    cache = os.path.join(root, "pyramid")
+    kw = dict(dir_path=png_dir, preload="disk", imread_mode="RGB",
+              cache_dir=cache)
+    t0 = time.perf_counter()
+    ds = DefaultImageFolderDataset(**kw)
+    out["pyramid_build_s"] = time.perf_counter() - t0
+    stamps = {f: os.stat(os.path.join(cache, f)).st_mtime_ns
+              for f in os.listdir(cache)}
+    t0 = time.perf_counter()
+    again = DefaultImageFolderDataset(**kw)
+    out["pyramid_reopen_s"] = time.perf_counter() - t0
+    top = ds.max_dataset_depth
+    if stamps != {f: os.stat(os.path.join(cache, f)).st_mtime_ns
+                  for f in os.listdir(cache)} or not isinstance(
+                      again.data[top], np.memmap):
+        raise AssertionError("the reopened dataset did not reuse the cache")
+    levels = (top - 1, (top + 2) // 2, 2)
+    for depth in levels:  # the host library against numpy, level by level
+        want = np.uint8(np.clip(np.round(np.stack(
+            [box_downsample(x, 2) for x in ds.data[depth + 1][:4]])), 0, 255))
+        if not np.array_equal(np.asarray(ds.data[depth][:4]), want):
+            raise AssertionError(f"pyramid level {depth} differs from numpy")
+    log(f"  {len(ds)} PNGs written in {out['write_pngs_s']:.1f} s; disk "
+        f"pyramid (levels 2-{top}, host library {native.library()._name}) "
+        f"built in {out['pyramid_build_s']:.2f} s, reopened from its cache "
+        f"in {out['pyramid_reopen_s']:.3f} s; levels {levels} equal "
+        f"numpy's")
+
+    out_json = os.path.join(root, "eval.json")
+    argv = ["--generator_path", snapshot,
+            "--dataset_class", "DefaultImageFolderDataset",
+            *[a for k, v in kw.items()
+              for a in (f"--DefaultImageFolderDataset.{k}", str(v))],
+            "--num_samples", str(EVAL_SAMPLES),
+            "--minibatch", str(EVAL_MINIBATCH), "--output_json", out_json,
+            "--device", device]
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    results, baseline = eval_cli.cli_main(argv)
+    out["eval_s"] = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    payload = json.load(open(out_json))
+    if list(results)[:-1] != swd_levels(EVAL_RES) or not all(
+            math.isfinite(v) for v in [*results.values(),
+                                       *baseline.values()]):
+        raise AssertionError(f"eval results {results}, baseline {baseline}")
+
+    # the same reals, fakes and draws through the card and the CPU
+    params = eval_cli.get_structured_params(
+        vars(eval_cli.build_parser().parse_args(argv)))
+    G, meta = load_snapshot(snapshot, device=device)
+    reals = eval_cli.real_sample(ds, meta["depth"], meta["alpha"], params)
+    reals, reals_b = reals[:EVAL_SAMPLES], reals[EVAL_SAMPLES:]
+    fakes = sample_images(G, meta["depth"], meta["alpha"], EVAL_SAMPLES,
+                          minibatch=EVAL_MINIBATCH,
+                          rng=np.random.RandomState(SEED + 2))
+    del G
+    scores, secs = {}, {}
+    for route in (device, "cpu"):
+        params["device"] = route
+        kw_swd = eval_cli._swd_kwargs(params)
+        t0 = time.perf_counter()
+        scores[route] = {
+            "fakes": swd(reals, fakes, eval_cli._generator(SEED), **kw_swd),
+            "baseline": swd(reals, reals_b, eval_cli._generator(SEED),
+                            **kw_swd),
+            "msssim_reals": eval_cli.pairwise_msssim(
+                reals, eval_cli._generator(SEED + 1),
+                minibatch=EVAL_MINIBATCH, device=route)}
+        secs[route] = time.perf_counter() - t0
+    worst = max(abs(scores[device][k][lv] - scores["cpu"][k][lv])
+                / abs(scores["cpu"][k][lv])
+                for k in ("fakes", "baseline") for lv in results)
+    ms_gap = abs(scores[device]["msssim_reals"]
+                 - scores["cpu"]["msssim_reals"])
+    cli_gap = max(abs(payload[f"swd_baseline_{lv}"]
+                      - scores[device]["baseline"][lv])
+                  / abs(scores["cpu"]["baseline"][lv])
+                  for lv in results)
+    out.update(swd=results, swd_baseline=baseline,
+               msssim_fakes=payload["msssim_fakes"],
+               msssim_reals=payload["msssim_reals"],
+               swd_card_vs_cpu_rel=worst, msssim_card_vs_cpu=ms_gap,
+               swd_cpu=scores["cpu"]["fakes"],
+               seconds_two_swd_and_msssim=secs)
+    log(f"  eval CLI ({out['eval_s']:.1f} s, launches {launches}): SWD x1e3 "
+        f"{ {k: round(v, 2) for k, v in results.items()} }, real floor "
+        f"{ {k: round(v, 2) for k, v in baseline.items()} }, MS-SSIM fakes "
+        f"{payload['msssim_fakes']:.4f} / reals {payload['msssim_reals']:.4f}")
+    log(f"  card vs CPU, same images and draws: SWD per level within "
+        f"{worst:.2e} relative, MS-SSIM {ms_gap:.2e}; two SWDs of "
+        f"{EVAL_SAMPLES} vs {EVAL_SAMPLES} at {EVAL_RES} px and one MS-SSIM "
+        f"pairing: card {secs[device]:.2f} s, CPU {secs['cpu']:.1f} s")
+    if worst > SWD_RTOL or ms_gap > MSSSIM_ATOL or cli_gap > SWD_RTOL:
+        raise AssertionError(f"SWD card vs CPU {worst}, MS-SSIM {ms_gap}, "
+                             f"CLI vs rerun {cli_gap}")
+    return out, launches
+
+
+def h5_phase(torch, root, device="cuda"):
+    """A few training steps on a seeded windowed H5Dataset, where h5py is
+    installed; None where it is not."""
+    try:
+        import h5py
+    except ImportError:
+        log("  h5py is not installed here: H5Dataset not run on the card "
+            "(host-only code; the CPU tests hold it)")
+        return None
+    import numpy as np
+    from pggan_tpu_torch.cli import train as cli
+    path = os.path.join(root, "data.h5")
+    rng = np.random.RandomState(SEED + 3)
+    with h5py.File(path, "w") as f:
+        for r in (4, 8, 16, 32):
+            f[f"data{r}x{r}"] = rng.randint(0, 256, (32, 3, r, r),
+                                            dtype=np.uint8)
+    argv = ["--dataset_class", "H5Dataset", "--H5Dataset.h5_path", path,
+            "--H5Dataset.preload", "False",
+            "--DepthManager.lod_training_nimg", "32",
+            "--DepthManager.lod_transition_nimg", "32",
+            "--DepthManager.tick_kimg_default", "0.064",
+            "--DepthManager.tick_kimg_overrides", "{}",
+            "--num_data_workers", "2", "--random_seed", str(SEED),
+            "--result_dir", os.path.join(root, "h5runs"),
+            "--total_kimg", "0.128", "--device", device]
+    t0 = time.perf_counter()
+    trainer = cli.main(cli.get_structured_params(
+        vars(cli.build_parser().parse_args(argv))))
+    sync(torch, device)
+    secs = time.perf_counter() - t0
+    if trainer.cur_nimg < 128:
+        raise AssertionError(f"H5 run stopped at {trainer.cur_nimg} images")
+    log(f"  H5Dataset (windowed reads, h5py {h5py.__version__}): "
+        f"{trainer.cur_nimg} images to depth {trainer.depth} in {secs:.1f} s")
+    return {"images": trainer.cur_nimg, "seconds": secs}
 
 
 # device kernels by source, for the profile (first match wins)
@@ -1464,7 +1950,9 @@ def main() -> int:
     log(f"phase 9: progressive run of the paper configuration through the "
         f"train CLI, depth 0 to {TRAIN_DEPTH}, stopped at {CLI_STOP} kimg "
         f"and resumed to {CLI_TOTAL} kimg")
-    train["progressive_run"], run_launches, replayed = cli_phase(torch)
+    keep = tempfile.TemporaryDirectory()
+    train["progressive_run"], run_launches, replayed = cli_phase(
+        torch, keep.name)
     log(f"  the resumed run's kernel launches (eager first calls): "
         f"{run_launches}; kernels run in its replays: {dict(replayed)}")
     for name in TRAIN_KERNELS:
@@ -1473,12 +1961,39 @@ def main() -> int:
                                  f"run, or never replayed")
     log(f"phase 9 passed ({time.perf_counter() - t_start:.0f} s so far)")
 
+    # phase 10: sound files -> STFT images on the card -> the train CLI
+    # with the SoundSaver -> the generate CLI's SoundSaver
+    log(f"phase 10: {SOUND_FILES} WAVs -> SoundImageDataset (n_fft {N_FFT}, "
+        f"hop {HOP}) -> train CLI at the paper widths, 1 channel, depth 0 "
+        f"to {SOUND_DEPTH} (512 px), ImageSaver + SoundSaver -> generate CLI "
+        f"with the SoundSaver, on {card}")
+    with tempfile.TemporaryDirectory() as root:
+        sound, sound_launches, sound_replayed, gen_launches = sound_phase(
+            torch, root)
+    for name in TRAIN_KERNELS:
+        if not sound_launches.get(name) or not sound_replayed.get(name):
+            raise AssertionError(f"{name} was never launched by the sound "
+                                 f"run, or never replayed")
+    log(f"phase 10 passed ({time.perf_counter() - t_start:.0f} s so far)")
+
+    # phase 11: an image folder's disk pyramid, then the eval CLI
+    log(f"phase 11: {2 * EVAL_SAMPLES} PNGs at 1024 px -> "
+        f"DefaultImageFolderDataset(preload='disk') -> eval CLI on phase "
+        f"9's depth-8 snapshot, {EVAL_SAMPLES} samples, on {card}")
+    with tempfile.TemporaryDirectory() as root:
+        evaluation, eval_launches = eval_phase(
+            torch, root, train["progressive_run"].pop("snapshot"))
+        evaluation["h5"] = h5_phase(torch, root)
+    keep.cleanup()
+    log(f"phase 11 passed ({time.perf_counter() - t_start:.0f} s so far)")
+
     # the result lines. ms, plain_ms, library_ms and the bounds: per
     # depth-8 fade train step (batch 3) for the kernels the step runs, per
     # depth-8 serve forward (batch 16) for the serve-only chain
-    # launches: the wrapper's launches on the three paths, each counted
-    # from zero (phase 4's serves, phase 5's eager steps, phase 9's resumed
-    # run); by path beside it, with the kernels phase 9's replays ran
+    # launches: the wrapper's launches on the paths, each counted from
+    # zero (phase 4's serves, phase 5's eager steps, phase 9's resumed run,
+    # phase 10's sound run and sound serve, phase 11's eval); by path
+    # beside it, with the kernels the runs' graph replays ran
     kernels = []
     for name, (src, rep) in KERNELS.items():
         per_step = name in TRAIN_KERNELS
@@ -1486,12 +2001,16 @@ def main() -> int:
         by_path = {"serve": serve_launches.get(name, 0),
                    "train_step_eager": train_launches.get(name, 0),
                    "progressive_run": run_launches.get(name, 0),
-                   "progressive_run_replayed": replayed.get(name, 0)}
+                   "progressive_run_replayed": replayed.get(name, 0),
+                   "sound_train": sound_launches.get(name, 0),
+                   "sound_train_replayed": sound_replayed.get(name, 0),
+                   "generate_sound": gen_launches.get(name, 0),
+                   "eval": eval_launches.get(name, 0)}
         log(f"  {name}: launches by path {by_path}")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": sum(v for k, v in by_path.items()
-                            if k != "progressive_run_replayed"),
+                            if not k.endswith("_replayed")),
             "launches_by_path": by_path, "max_abs_err": checks.err[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "library_ms": t["library_ms"] if "library_ms" in t else None,
@@ -1507,6 +2026,8 @@ def main() -> int:
                                 "card": card_line}}))
     print(json.dumps({"train": {**train, "card": card_line}}))
     print(json.dumps({"profile": {**profile, "card": card_line}}))
+    print(json.dumps({"sound": {**sound, "card": card_line}}))
+    print(json.dumps({"eval": {**evaluation, "card": card_line}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,9 @@ numpy output through the configured postprocessors:
 
 The flags are those of ``pggan_tpu/cli/generate.py`` plus ``--device``
 (default ``cuda``), which never falls back to the CPU: without a card the
-default raises. Snapshots from either package load.
+default raises. ``--device`` also sets a postprocessor's ``device`` (the
+SoundSaver's Griffin-Lim) unless ``--SoundSaver.device`` is given.
+Snapshots from either package load.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from pggan_tpu_torch.utils.config import (
     generic_arg_parse,
     get_all_classes,
     get_structured_params,
+    pass_device,
 )
 
 default_params = {
@@ -85,8 +88,11 @@ def cli_main(argv=None):
                    default_params=flat_defaults)
     parser.set_defaults(**flat_defaults)
     params = get_structured_params(vars(parser.parse_args(argv)))
-    postprocessors = [getattr(postprocess_module, x)(**params.get(x, {}))
-                      for x in params["postprocessors"]]
+    postprocessors = []
+    for x in params["postprocessors"]:
+        cls = getattr(postprocess_module, x)
+        postprocessors.append(cls(**pass_device(cls, params.get(x, {}),
+                                                params["device"])))
     return output_samples(params["generator_path"], params["num_samples"],
                           postprocessors, params["description"],
                           params["random_seed"], params["result_dir"],

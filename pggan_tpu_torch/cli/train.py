@@ -10,7 +10,9 @@ runs the progressive schedule on one device:
 
 The flags are the JAX CLI's plus ``--device`` (default ``cuda``, which
 raises without a card; ``--device cpu`` trains on the CPU with the
-kernels' plain versions). On the card every train step after a stage's
+kernels' plain versions). ``--device`` also sets the ``device`` of a
+dataset class or postprocessor that has one (``SoundImageDataset``'s STFT,
+``SoundSaver``'s Griffin-Lim) unless ``--Cls.device`` is given. On the card every train step after a stage's
 first is a CUDA graph replay (``training/steps.py``). Checkpoints are the
 JAX format's snapshots plus the port's training state; ``--resume_network
 latest`` resumes the newest run under ``--result_dir``.
@@ -25,7 +27,6 @@ True`` raises: a graph is captured after a real step of its stage.
 
 from __future__ import annotations
 
-import inspect
 import os
 import re
 from argparse import ArgumentParser
@@ -62,9 +63,11 @@ from pggan_tpu_torch.training.steps import TrainStepBuilder
 from pggan_tpu_torch.training.trainer import Trainer
 from pggan_tpu_torch.utils.config import (
     add_class_args,
+    alias_default,
     generic_arg_parse,
     get_all_classes,
     get_structured_params,
+    pass_device,
 )
 from pggan_tpu_torch.utils.misc import (
     create_result_subdir,
@@ -156,14 +159,6 @@ def find_latest_snapshot(result_root: str) -> str:
                                      "network-snapshot-{}-"))
 
 
-def _alias_default(cfg: dict, key: str, cls, value) -> None:
-    """A top-level alias flag feeds ``cfg[key]`` unless the class-scoped
-    ``--Cls.key`` flag was moved off its constructor default."""
-    default = inspect.signature(cls.__init__).parameters[key].default
-    if cfg.get(key, default) == default:
-        cfg[key] = value
-
-
 def make_experiment(params):
     """Optional CometML wiring (reference train.py:67-87); None when no key
     is configured or comet_ml is unavailable."""
@@ -193,7 +188,8 @@ def _dataset(params):
         names = sorted(c.__name__ for c in get_all_classes(dataset_module))
         raise SystemExit(f"Unknown dataset_class {params['dataset_class']!r}; "
                          f"available: {', '.join(names)}")
-    dataset = cls(**params.get(params["dataset_class"], {}))
+    dataset = cls(**pass_device(cls, params.get(params["dataset_class"], {}),
+                                params["device"]))
     if params["save_dataset"]:
         save_pkl(params["save_dataset"], dataset)
     return dataset
@@ -306,7 +302,7 @@ def build(params):
     # -- plugin stack, the JAX CLI's order (train.py:405-464) ---------------
     if params["progressive_growing"]:
         dm_cfg = dict(params.get("DepthManager", {}))
-        _alias_default(dm_cfg, "tick_kimg_default", DepthManager,
+        alias_default(dm_cfg, "tick_kimg_default", DepthManager,
                        params["tick_kimg_default"])
         if dm_cfg.get("max_lod") is None:  # Karras-parity lod logging
             dm_cfg["max_lod"] = G.R
@@ -335,10 +331,11 @@ def build(params):
             raise SystemExit(f"Unknown postprocessor {x!r}; "
                              f"available: {', '.join(names)}")
         cfg = {k: (os.path.join(result_dir, v) if k == "samples_path" else v)
-               for k, v in params.get(x, {}).items()}
+               for k, v in pass_device(proc_cls, params.get(x, {}),
+                                       params["device"]).items()}
         postprocessors.append(proc_cls(**cfg))
     og_cfg = dict(params.get("OutputGenerator", {}))
-    _alias_default(og_cfg, "output_snapshot_ticks", OutputGenerator,
+    alias_default(og_cfg, "output_snapshot_ticks", OutputGenerator,
                    params["image_snapshot_ticks"])
     trainer.register_plugin(OutputGenerator(
         lambda n: random_latents(n, latent_size), postprocessors, **og_cfg))

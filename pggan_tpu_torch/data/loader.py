@@ -3,9 +3,13 @@ prefetch, the counterpart of ``pggan_tpu/data/loader.py``.
 
 ``DataIterator`` yields ready (B, H, W, C) numpy batches from a bounded
 prefetch queue filled by worker threads: float32 with the fade and the
-dynamic-range remap done on the host, or, with ``raw=True``, the uint8
-pixels as they are, for the trainer to prep on the device
-(``TrainStepBuilder.prep_fn``). Threads see ``dataset.alpha`` as the
+dynamic-range remap done on the host by the host library
+(``native.prep_batch_f32``), or, with ``raw=True``, the uint8 pixels as
+they are, for the trainer to prep on the device
+(``TrainStepBuilder.prep_fn``). A dataset gives its raw uint8 batch
+(``raw_batch``) from a level in memory, a memmapped disk pyramid or a
+windowed H5 read; one without (a lazy folder, float levels) is stacked
+item by item. Threads see ``dataset.alpha`` as the
 schedule moves it. The sampler runs over all items: the port trains on one
 card, and the JAX loader's per-process shards come with data parallelism.
 """
@@ -17,7 +21,7 @@ import threading
 
 import numpy as np
 
-from pggan_tpu_torch.data.datasets import prep_batch_f32
+from pggan_tpu_torch.data.native import prep_batch_f32
 
 
 PREFETCH = 4  # batches the queue holds ahead of the trainer

@@ -1,5 +1,6 @@
 """Reflective ``--ClassName.param`` CLI config system (a copy of
-``pggan_tpu/utils/config.py``: plain Python, no JAX).
+``pggan_tpu/utils/config.py``: plain Python, no JAX), plus the port's rule
+for top-level flags that feed a class's parameter (``alias_default``).
 
 Reproduces the reference's distinctive config UX (utils.py:74-119,
 train.py:191-205; the build north-star requires it preserved): for a curated
@@ -96,3 +97,20 @@ def add_class_args(parser, classes, excludes=None, overrides=None,
             if default_params is not None:
                 default_params[flag] = default
     return auto
+
+
+def alias_default(cfg: dict, key: str, cls, value) -> None:
+    """A top-level alias flag feeds ``cfg[key]`` unless the class-scoped
+    ``--Cls.key`` flag was moved off its constructor default."""
+    default = inspect.signature(cls.__init__).parameters[key].default
+    if cfg.get(key, default) == default:
+        cfg[key] = value
+
+
+def pass_device(cls, cfg: dict, device: str) -> dict:
+    """``cfg`` with ``--device`` fed to ``cls``'s ``device`` parameter, where
+    it has one and ``--Cls.device`` is not set."""
+    cfg = dict(cfg)
+    if "device" in inspect.signature(cls.__init__).parameters:
+        alias_default(cfg, "device", cls, device)
+    return cfg

@@ -12,7 +12,10 @@ and G's NHCW tail on the kernels. Bars: losses rtol 1e-4; the update each
 parameter tensor took in one step, |replay - eager| / |eager| at most 1e-3
 in the 2-norm (chip_smoke.py's UPDATE_TOL, which says why: the compared
 step takes an alpha and learning rates other than the capture's, so a
-missing update, a baked-in lr or a stale bias correction is far outside).
+missing update, a baked-in lr or a stale bias correction is far outside),
+with cuDNN held to its deterministic algorithms in both steps (its default
+ones for the convs' gradients may sum with atomics, so two eager steps
+need not agree).
 """
 
 import copy
@@ -39,6 +42,13 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.fixture
+def deterministic_cudnn():
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = False
+
+
 def _models(device):
     G = Generator(SHAPE, fmap_base=512, fmap_max=32, latent_size=16,
                   generator=torch.Generator().manual_seed(0))
@@ -59,7 +69,7 @@ def _copy_state(src, dst):
 
 
 @pytest.mark.parametrize("fade", [True, False])
-def test_replay_matches_the_eager_step(cuda, fade):
+def test_replay_matches_the_eager_step(cuda, deterministic_cudnn, fade):
     """Warm-up, capture, then one replay against the eager step from the
     same state, generator and inputs, at an alpha and learning rates other
     than the capture's: the same losses, the same update of every

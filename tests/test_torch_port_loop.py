@@ -330,9 +330,11 @@ def test_resumed_run_equals_an_uninterrupted_one(tmp_path):
 
 def test_unknown_dataset_class_names_the_ports(tmp_path):
     argv = _argv(tmp_path, 0.1)
-    argv[argv.index("SyntheticDataset")] = "H5Dataset"
-    with pytest.raises(SystemExit, match="Unknown dataset_class 'H5Dataset'; "
-                       "available: DepthDataset, SyntheticDataset"):
+    argv[argv.index("SyntheticDataset")] = "NoSuchDataset"
+    with pytest.raises(SystemExit, match="Unknown dataset_class "
+                       "'NoSuchDataset'; available: DefaultImageFolderDataset, "
+                       "DepthDataset, FolderDataset, H5Dataset, OldH5Dataset, "
+                       "SoundImageDataset, SyntheticDataset, _H5Window"):
         cli.cli_main(argv)
 
 

@@ -211,6 +211,9 @@ def test_port_imports_neither_jax_nor_pggan_tpu():
         "for m in pkgutil.walk_packages(pggan_tpu_torch.__path__, "
         "'pggan_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "new = {'pggan_tpu_torch.' + m for m in ('cli.eval', 'metrics.swd', "
+        "'metrics.msssim', 'ops.stft', 'data.native', 'data.audio_io')}\n"
+        "assert new <= set(sys.modules), new - set(sys.modules)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'pggan_tpu')]\n"
         "assert not bad, bad\n"
