@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port on one CUDA card: builds the hand-written
 kernels, holds each against its plain PyTorch version at the shapes of the
 depth-8 (1024 px) paper-configuration serve (the fused conv pair also
-against the two unfused calls it replaces), serves a random-init
+against the two unfused calls it replaces) and the bf16 pool and upsample
+at every shape of a bf16 train step, serves a random-init
 paper-configuration snapshot through ``pggan_tpu_torch.cli.generate``,
 checks what comes out against the same model run on the CPU, holds the
 serve's pinned copy to the host against the pageable one, and profiles one
@@ -11,15 +12,20 @@ at depth 8, eagerly and as CUDA graph replays (the replay held against the
 eager step), holds every kernel against its plain version at every shape
 one train step gives it, holds a depth-6 train step against the same step
 on the CPU, profiles warm depth-8 train steps (device time by kernel,
-device busy share, launches from the host), runs a progressive training
-run from depth 0 to 8 through ``pggan_tpu_torch.cli.train``, stopped
-short and resumed from its checkpoint, then trains a one-channel 512 px
-sound model on seeded WAVs (their STFT images made on the card and held
-against the host path) with the SoundSaver's Griffin-Lim on the card,
-serves it through the generate CLI's SoundSaver (Griffin-Lim held against
-the CPU), and last builds an image folder's disk pyramid through the
-host library and scores the depth-8 snapshot with
-``pggan_tpu_torch.cli.eval`` (SWD and MS-SSIM held against the CPU).
+device busy share, launches from the host; ``utils/profiling.py``), runs a
+progressive training run from depth 0 to 8 through
+``pggan_tpu_torch.cli.train``, stopped short and resumed from its
+checkpoint, then trains a one-channel 512 px sound model on seeded WAVs
+(their STFT images made on the card and held against the host path) with
+the SoundSaver's Griffin-Lim on the card, serves it through the generate
+CLI's SoundSaver (Griffin-Lim held against the CPU), builds an image
+folder's disk pyramid through the host library and scores the depth-8
+snapshot with ``pggan_tpu_torch.cli.eval`` (SWD and MS-SSIM held against
+the CPU). Then bf16 mixed precision: a bf16 serve in turns with the f32
+ones, the bf16 depth-8 step eager and replayed (profiled), a depth-6 bf16
+step against the CPU's bf16 route, a bf16 progressive run through the
+train CLI; and last the export CLI on the f32 and bf16 depth-8 snapshots,
+one artifact run by a process that imports neither package.
 
     python3 chip_smoke.py
 
@@ -111,6 +117,12 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                    "pggan_tpu/ops/pallas_conv.py:398"),
     "avgpool2x": ("pggan_tpu_torch/csrc/avgpool2x.cu",
                   "pggan_tpu/ops/pallas_resample.py:110"),
+    # the bf16 instantiations of #5 and #6 (the TPU kernels are f32 only):
+    # the bf16 models' NCHW pools, G's fade upsample and their transposes
+    "avgpool2x_bf16": ("pggan_tpu_torch/csrc/avgpool2x.cu",
+                       "pggan_tpu/ops/pallas_resample.py:110"),
+    "upsample2x_bf16": ("pggan_tpu_torch/csrc/upsample2x.cu",
+                        "pggan_tpu/ops/pallas_resample.py:134"),
 }
 # The card's published peaks for the bounds (NVIDIA H100 SXM data sheet,
 # dense, at its 700 W limit): memory 3.35 TB/s; f32 products on the tensor
@@ -122,20 +134,30 @@ FMA_FLOP_PER_S = 67e12
 SERVE_ONLY = ("conv3x3_chain", "conv3x3_chain_pn")
 SERVE_KERNELS = ("upsample2x", "conv3x3", "conv3x3_act", "conv3x3_act_pn",
                  *SERVE_ONLY)
-TRAIN_KERNELS = tuple(k for k in KERNELS if k not in SERVE_ONLY)
+BF16_KERNELS = ("avgpool2x_bf16", "upsample2x_bf16")
+TRAIN_KERNELS = tuple(k for k in KERNELS
+                      if k not in SERVE_ONLY + BF16_KERNELS)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def element_bytes(name: str) -> int:
+    """The bytes of one element a kernel mode moves: 2 for the bf16
+    instantiations (``*_bf16``), else 4 (f32)."""
+    return 2 if name.endswith("_bf16") else 4
+
+
 def work(name: str, sig) -> tuple:
     """(FLOPs, bytes) of one call of kernel ``name`` with call signature
     ``sig`` (its arguments, tensors as shapes, as ``CallLog`` records
-    them): a multiply-add counts two FLOPs, and each f32 input is read
-    once and each output written once."""
+    them): a multiply-add counts two FLOPs, and each input element is read
+    once and each output written once, at the mode's element size."""
     shapes = [a for a in sig if isinstance(a, tuple)]
     read = sum(math.prod(s) for s in shapes)
+    eb = element_bytes(name)
+    name = name.removesuffix("_bf16")
     if name in ("conv3x3", "conv3x3_act", "conv3x3_act_pn"):
         (n, h, c, w), k = shapes[0], shapes[1][3]
         out = n * h * k * w + (n * h * w if name == "conv3x3_act_pn" else 0)
@@ -148,9 +170,9 @@ def work(name: str, sig) -> tuple:
         return (2 * n * h * w * 9 * (c * k1 + k1 * k2),
                 4 * (read + n * h * k2 * w))
     if name == "avgpool2x":
-        return 0, 4 * (read + read // 4)
+        return 0, eb * (read + read // 4)
     if name == "upsample2x":
-        return 0, 4 * (read + 4 * read)
+        return 0, eb * (read + 4 * read)
     raise KeyError(name)
 
 
@@ -178,6 +200,7 @@ def library_call(torch, name, args):
     call (the fused epilogues and the chain)."""
     F = torch.nn.functional
     nchw = lambda t: t.permute(0, 2, 1, 3).contiguous()  # noqa: E731
+    name = name.removesuffix("_bf16")  # the same call on bf16 tensors
     if name == "conv3x3":
         x, w = nchw(args[0]), args[1].permute(3, 2, 0, 1).contiguous()
         return lambda: F.conv2d(x, w, padding=1)
@@ -350,20 +373,24 @@ class KernelChecks:
 
     def chain_modes(self, x, w1, b1, w2, b2, label, timed=True):
         """Both chain modes against the plain version in float64 (the f32
-        plain version's error printed beside); returns each mode's ms."""
+        plain version's error printed beside); returns each mode's ms, and
+        adds its back-to-back time (a burst of 20) to the serve sums."""
         from pggan_tpu_torch.ops import conv_chain as CH
         times = {}
         for name, pn in (("conv3x3_chain_pn", 1e-8), ("conv3x3_chain", None)):
             def plain(*a, pn=pn):
                 return CH.conv3x3_chain_plain(*a, slope=0.2, pn_eps=pn)
+
+            def kernel(pn=pn):
+                return CH.conv3x3_chain(*args, slope=0.2, pn_eps=pn)
             args = (x, w1, b1, w2, b2)
-            t = self.check(name, label,
-                           lambda pn=pn: CH.conv3x3_chain(
-                               *args, slope=0.2, pn_eps=pn),
-                           lambda p=plain: p(*args), timed=timed, args=args,
+            t = self.check(name, label, kernel, lambda p=plain: p(*args),
+                           timed=timed, args=args,
                            reference=self.f64(plain, *args))
             if t is not None:
                 times[name] = t[0]
+                self.sums["serve"][name]["burst_ms"] += burst_ms(
+                    self.torch, kernel, 20)
         return times
 
     def layer(self, c, k):
@@ -409,6 +436,13 @@ class KernelChecks:
                         f"against two {conv} {pair:.3f} ms: "
                         f"{chain[name] / pair:.2f}x")
                 del x, xs, z
+            for name in SERVE_ONLY:
+                t = self.sums["serve"][name]
+                log(f"  {name} per depth-8 serve forward: bracketed "
+                    f"{t['ms']:.3f} ms, back to back {t['burst_ms']:.3f} ms, "
+                    f"bound {t['bound_ms']:.3f} ms: "
+                    f"{t['bound_ms'] / t['burst_ms']:.1%} of its bound back "
+                    f"to back")
             # ragged: H and W not multiples of any tile, to hold the masks
             x = self.rand(3, 37, 5, 45)
             self.check("upsample2x", "ragged x (3, 37, 5, 45)",
@@ -453,23 +487,28 @@ class KernelChecks:
                    lambda: C.conv3x3(x, w), lambda: C.conv3x3_plain(x, w),
                    timed=False, reference=self.f64(C.conv3x3_plain, x, w))
 
-    def train_shapes(self, calls):
+    def train_shapes(self, calls, names=TRAIN_KERNELS, per="fade step"):
         """Every kernel call of one depth-8 train step (``CallLog``), each
         distinct shape held against its plain version once and timed: one
         bracketed call (host launch path included) and a call of a
         back-to-back burst (device time); the times count as often as the
         step made the call. The weight gradient's two calls at each shape
-        must agree bit for bit."""
+        must agree bit for bit; the resamples must equal their plain
+        versions (f32 and bf16). ``names`` are the kernels summarised."""
         torch = self.torch
         plain = plain_versions()
         with torch.no_grad():
             for (name, sig), count in sorted(calls.items()):
+                if name not in names:
+                    continue
+                dtype = (torch.bfloat16 if name.endswith("_bf16")
+                         else torch.float32)
                 args = []
                 for a in sig:
                     if isinstance(a, tuple):  # a tensor's shape
                         scale = ((2.0 / (9 * a[2])) ** 0.5 if len(a) == 4
                                  and a[:2] == (3, 3) else 1.0)
-                        args.append(self.rand(*a, scale=scale))
+                        args.append(self.rand(*a, scale=scale).to(dtype))
                     else:
                         args.append(a)
                 label = " ".join(str(a) for a in sig)
@@ -483,7 +522,8 @@ class KernelChecks:
                     name, label[:34],
                     lambda: CallLog.ORIGINAL[name](*args),
                     lambda: plain[name](*args),
-                    exact=name in ("avgpool2x", "upsample2x"),
+                    exact=name.removesuffix("_bf16") in ("avgpool2x",
+                                                         "upsample2x"),
                     tol=DW_TOL if name == "conv3x3_dw" else None,
                     count=count, args=args,
                     reference=(self.f64(plain[name], *args)
@@ -499,9 +539,12 @@ class KernelChecks:
                 self.host.items(), key=lambda kv: math.prod(kv[0][0]))[:3]:
             log(f"  upsample2x {sig[0]}: one bracketed call {one * 1e3:.1f} "
                 f"us, in a burst {burst * 1e3:.1f} us a call")
-        for name in TRAIN_KERNELS:
+        self.host.clear()
+        for name in names:
             t = self.sums["train"][name]
-            log(f"  {name:15s} per fade step: bracketed {t['ms']:.3f} ms, "
+            if not t["burst_ms"]:
+                raise AssertionError(f"{name}: no call of the step checked")
+            log(f"  {name:15s} per {per}: bracketed {t['ms']:.3f} ms, "
                 f"back to back {t['burst_ms']:.3f} ms, bound "
                 f"{t['bound_ms']:.3f} ms: {t['bound_ms'] / t['burst_ms']:.1%}"
                 f" of its bound back to back")
@@ -522,14 +565,17 @@ def plain_versions():
                 C.conv3x3_act_pn_plain(x, w, b, slope=s, eps=e),
             "conv3x3_dw": C.conv3x3_dw_plain,
             "avgpool2x": R.avgpool2x_plain,
-            "upsample2x": R.upsample2x_plain}
+            "upsample2x": R.upsample2x_plain,
+            "avgpool2x_bf16": R.avgpool2x_plain,  # the twins take bf16
+            "upsample2x_bf16": R.upsample2x_plain}
 
 
 class CallLog:
     """Records the kernel wrappers' calls (kernel mode and input shapes) on
     the train path, and which weight-gradient calls fall inside the
     gradient penalty's inner ``autograd.grad``: there should be none, as
-    in the JAX package (``ops/conv3x3.py:input_grad_only``)."""
+    in the JAX package (``ops/conv3x3.py:input_grad_only``). A resample
+    call on bf16 tensors records as its bf16 mode (``*_bf16``)."""
 
     ORIGINAL: dict = {}
 
@@ -544,6 +590,9 @@ class CallLog:
                       "upsample2x": (R, "_upsample")}
         for name, (mod, attr) in self.sites.items():
             CallLog.ORIGINAL.setdefault(name, getattr(mod, attr))
+        for name in BF16_KERNELS:
+            CallLog.ORIGINAL.setdefault(
+                name, CallLog.ORIGINAL[name.removesuffix("_bf16")])
         self.calls = collections.Counter()
         self.gp_dw = collections.Counter()
         self._in_gp = False
@@ -559,7 +608,9 @@ class CallLog:
             def logged(*args):
                 sig = tuple(tuple(a.shape) if isinstance(a, torch.Tensor)
                             else a for a in args)
-                self.calls[(name, sig)] += 1
+                bf16 = any(isinstance(a, torch.Tensor)
+                           and a.dtype == torch.bfloat16 for a in args)
+                self.calls[(name + "_bf16" if bf16 else name, sig)] += 1
                 if self._in_gp and name == "conv3x3_dw":
                     self.gp_dw[(name, sig)] += 1
                 return orig(*args)
@@ -750,33 +801,31 @@ def serve_profile(torch, snap, sample_images):
     (the serve default, chain on): device time by kernel group, the D2H
     copy included, against the host window."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
     from pggan_tpu_torch.checkpoint import load_snapshot
+    from pggan_tpu_torch.utils.profiling import capture, device_profile
     G, meta = load_snapshot(snap, device="cuda")
     G.inference_chain = True
     run = lambda: sample_images(  # noqa: E731
         G, meta["depth"], meta["alpha"], BATCH, minibatch=BATCH,
         rng=np.random.RandomState(SEED))
     run()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    return device_profile(torch, prof, wall_ms, 1,
-                          f"serve profile, one chunk of {BATCH}", "chunk")
+    prof, wall_ms = capture(run)
+    return device_profile(prof, wall_ms, 1,
+                          f"serve profile, one chunk of {BATCH}", "chunk",
+                          log=log)
 
 
-def paper_models(torch, device):
+def paper_models(torch, device, compute_dtype="float32"):
     """The paper configuration (``Generator((1, 3, 1024, 1024))`` and
-    ``Discriminator`` with all defaults), random weights from SEED, G's
-    per-conv Functions on (no chain: the train path)."""
+    ``Discriminator`` with all defaults but ``compute_dtype``), random
+    weights from SEED (the same in both dtypes), G's per-conv Functions on
+    (no chain: the train path)."""
     from pggan_tpu_torch.models import Discriminator, Generator
     shape = (1, 3, 1024, 1024)
-    G = Generator(shape, generator=torch.Generator().manual_seed(SEED))
-    D = Discriminator(shape, generator=torch.Generator().manual_seed(SEED + 1))
+    G = Generator(shape, compute_dtype=compute_dtype,
+                  generator=torch.Generator().manual_seed(SEED))
+    D = Discriminator(shape, compute_dtype=compute_dtype,
+                      generator=torch.Generator().manual_seed(SEED + 1))
     return G.to(device), D.to(device)
 
 
@@ -1309,6 +1358,7 @@ def replay_launches(torch, trainer, _build, iterations: int = 3) -> float:
     graph launches) per trainer iteration whose step is a replay, from the
     profiler's host events; no kernel wrapper may run in them."""
     from torch.profiler import ProfilerActivity, profile
+    from pggan_tpu_torch.utils.profiling import HOST_LAUNCHES
     before = dict(_build.LAUNCHES)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1753,38 +1803,31 @@ def h5_phase(torch, root, device="cuda"):
     return {"images": trainer.cur_nimg, "seconds": secs}
 
 
-# device kernels by source, for the profile (first match wins)
-KERNEL_GROUPS = (
-    ("chain kernel", ("chain_kernel", "chain_split")),
-    ("conv3x3 kernel", ("conv3x3_kernel", "conv3x3_split")),
-    ("conv3x3_dw kernel", ("conv3x3_dw",)),
-    ("upsample / pool kernels", ("upsample2x", "avgpool2x")),
-    ("cuDNN / GEMM", ("cudnn", "gemm", "sm90_", "sm80_", "cutlass", "xmma",
-                      "convolve", "fft", "winograd", "dgrad", "wgrad")),
-    ("Adam (foreach)", ("foreach", "multi_tensor")),
-    ("reductions", ("reduce",)),
-    ("elementwise and copies", ("elementwise", "copy", "fill", "cat")),
-    ("device-to-host copy", ("Memcpy DtoH",)),
-)
-# the groups of the kernels in csrc/ that a train step runs
-OUR_GROUPS = ("conv3x3 kernel", "conv3x3_dw kernel", "upsample / pool kernels")
+# the groups of the kernels in csrc/ that an f32 train step runs
+# (utils/profiling.py's KERNEL_GROUPS)
+OUR_GROUPS = ("conv3x3 kernel", "conv3x3_dw kernel", "upsample kernel",
+              "pool kernel")
+BF16_GROUPS = ("upsample kernel", "pool kernel")
 
 
-def profile_phase(torch, steps: int = 2):
-    """``torch.profiler`` over ``steps`` warm depth-8 train steps of each
-    graph (fade, stable), eager and replayed as CUDA graphs: device time
-    summed by kernel name and group, device busy share (the union of
-    kernel intervals over the host window of the synchronised steps), and
-    the launches the host issued. A replay must run the kernels of the
-    eager step: per step, as many of each hand-written kernel group on the
-    card, and the graph's captured wrapper calls equal to the eager step's
-    launches."""
-    from torch.profiler import ProfilerActivity, profile
+def profile_phase(torch, steps: int = 2, compute_dtype="float32",
+                  then=None):
+    """``torch.profiler`` (``utils/profiling.py``) over ``steps`` warm
+    depth-8 train steps of each graph (fade, stable), eager and replayed as
+    CUDA graphs: device time summed by kernel name and group, device busy
+    share (the union of kernel intervals over the host window of the
+    synchronised steps), and the launches the host issued. A replay must
+    run the kernels of the eager step: per step, as many of each
+    hand-written kernel group on the card, and the graph's captured wrapper
+    calls equal to the eager step's launches. ``then(G, D, state,
+    builder)`` runs on the graphed route's builder before the models go."""
     from pggan_tpu_torch.ops import _build
     from pggan_tpu_torch.training import TrainStepBuilder, init_state
-    G, D = paper_models(torch, "cuda")
+    from pggan_tpu_torch.utils.profiling import capture, device_profile
+    G, D = paper_models(torch, "cuda", compute_dtype)
     state = init_state(G, D, seed=SEED)
     out, wrapper_calls = {}, {}
+    groups = OUR_GROUPS if compute_dtype == "float32" else BF16_GROUPS
     for route in ("eager", "graphed"):
         builder = TrainStepBuilder(G, D, cuda_graphs=route == "graphed")
         prep = builder.prep_fn()
@@ -1795,18 +1838,15 @@ def profile_phase(torch, steps: int = 2):
             for _ in range(2):  # warm-up; the graphed route's capture
                 step(state, prep(u8, alpha), alpha, LR, LR)
             reals = prep(u8, alpha)
-            torch.cuda.synchronize()
             launches = dict(_build.LAUNCHES)
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
+
+            def run(step=step, reals=reals, alpha=alpha):
                 for _ in range(steps):
                     step(state, reals, alpha, LR, LR)
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
+            prof, wall_ms = capture(run)
             graph = f"{route}_{'fade' if fade else 'stable'}"
-            out[graph] = device_profile(torch, prof, wall_ms, steps, graph,
-                                        "step")
+            out[graph] = device_profile(prof, wall_ms, steps, graph, "step",
+                                        log=log)
             wrapper_calls[graph] = (
                 {k: (n - launches.get(k, 0)) / steps
                  for k, n in _build.LAUNCHES.items()
@@ -1815,9 +1855,9 @@ def profile_phase(torch, steps: int = 2):
     for graph in ("fade", "stable"):
         eager, replay = out[f"eager_{graph}"], out[f"graphed_{graph}"]
         ours = {g: eager["kernels_per_step_by_group"].get(g, 0)
-                for g in OUR_GROUPS}
+                for g in groups}
         theirs = {g: replay["kernels_per_step_by_group"].get(g, 0)
-                  for g in OUR_GROUPS}
+                  for g in groups}
         calls = (wrapper_calls[f"eager_{graph}"],
                  wrapper_calls[f"graphed_{graph}"])
         log(f"  {graph}: hand-written kernels on the card a step, eager "
@@ -1826,57 +1866,688 @@ def profile_phase(torch, steps: int = 2):
         if ours != theirs or not all(ours.values()) or calls[0] != calls[1]:
             raise AssertionError(f"{graph}: the replay ran other kernels "
                                  f"than the eager step")
+    if then is not None:
+        then(G, D, state, builder)
+    del G, D, state, builder
+    torch.cuda.empty_cache()
     return out
 
 
-# host calls that put work on the card's queue
-HOST_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
-                 "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
+def kernel_of(name: str):
+    """The kernel mode (a key of KERNELS) of a device kernel's name in a
+    profile, ``"conv3x3 weight split"`` for the conv's weight split, or
+    None for a kernel not in csrc/."""
+    import re
+    m = re.search(r"conv3x3_kernel<\s*\d+\s*,\s*(\d)\s*>", name)
+    if m:
+        return ("conv3x3", "conv3x3_act", "conv3x3_act_pn")[int(m.group(1))]
+    if "conv3x3_split" in name:
+        return "conv3x3 weight split"
+    if "conv3x3_dw" in name:
+        return "conv3x3_dw"
+    for base in ("avgpool2x", "upsample2x"):
+        m = re.search(base + r"\w*<([^>]*)>", name)
+        if m:
+            bf16 = "bfloat16" in m.group(1) or "uint2" in m.group(1)
+            return base + ("_bf16" if bf16 else "")
+    return None
 
 
-def device_profile(torch, prof, wall_ms, per, tag, unit) -> dict:
-    """Sums a profiler window's device activity (kernels and copies) by
-    name and by ``KERNEL_GROUPS``, per ``per`` repetitions; the busy share
-    is the union of their intervals over the host window ``wall_ms``."""
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_name = collections.Counter()
-    spans = []
-    for e in kernels:
-        by_name[e.name] += e.time_range.elapsed_us() / 1e3
-        spans.append((e.time_range.start, e.time_range.end))
-    busy_us, end = 0.0, -math.inf
-    for a, b in sorted(spans):
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-    host = sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CPU
-               and e.name in HOST_LAUNCHES)
-    groups, counts = collections.Counter(), collections.Counter()
-    group_of = {}
-    for name, ms in by_name.items():
-        group_of[name] = next((g for g, keys in KERNEL_GROUPS
-                               if any(k in name for k in keys)), "other")
-        groups[group_of[name]] += ms / per
-    for e in kernels:
-        counts[group_of[e.name]] += 1
-    log(f"  {tag}: {wall_ms / per:.1f} ms a {unit}, device busy "
-        f"{busy_us / 1e3 / per:.1f} ms ({busy_us / 1e3 / wall_ms:.1%}), "
-        f"{len(kernels) / per:.0f} kernels and copies on the card, "
-        f"{host / per:.0f} launches from the host")
-    for g, ms in groups.most_common():
-        log(f"    {g:24s} {ms:8.3f} ms")
-    return {f"wall_ms_per_{unit}": wall_ms / per,
-            f"device_busy_ms_per_{unit}": busy_us / 1e3 / per,
-            "device_busy_share": busy_us / 1e3 / wall_ms,
-            f"launches_per_{unit}": len(kernels) / per,
-            f"host_launches_per_{unit}": host / per,
-            f"ms_per_{unit}_by_group": dict(groups.most_common()),
-            f"kernels_per_{unit}_by_group": {g: n / per
-                                             for g, n in counts.items()},
-            f"top_kernels_ms_per_{unit}": {
-                n: ms / per for n, ms in by_name.most_common(12)}}
+def device_ms_by_kernel(profile_out: dict) -> dict:
+    """Device ms per step of each kernel mode in a ``device_profile``."""
+    ms = collections.Counter()
+    for name, t in profile_out["ms_per_step_by_name"].items():
+        k = kernel_of(name)
+        if k is not None:
+            ms[k] += t
+    return dict(ms)
+
+
+# -- bf16 (phases 3, 12-15) and the export (phase 16) --------------------------
+
+def bf16_step_calls(torch):
+    """The kernel calls (``CallLog``) of one eager bf16 depth-8 fade step of
+    the paper configuration at batch 3: the bf16 pool and upsample only
+    (the conv kernels are f32 and the bf16 models never reach them)."""
+    from pggan_tpu_torch.training import TrainStepBuilder, init_state
+    G, D = paper_models(torch, "cuda", "bfloat16")
+    state = init_state(G, D, seed=SEED)
+    builder = TrainStepBuilder(G, D, cuda_graphs=False)
+    u8 = uint8_reals(torch, builder, TRAIN_DEPTH, SEED).cuda()
+    call_log = CallLog()
+    with call_log.recording():
+        metrics = builder.step_fn(TRAIN_DEPTH, TRAIN_BATCH, True)(
+            state, builder.prep_fn()(u8, 0.5), 0.5, LR, LR)
+    values = {k: float(v) for k, v in metrics.items()}
+    names = {name for name, _sig in call_log.calls}
+    log(f"  one bf16 depth-{TRAIN_DEPTH} fade step: {values}; kernel calls "
+        f"{sum(call_log.calls.values())} at {len(call_log.calls)} shapes "
+        f"({sorted(names)})")
+    if names != set(BF16_KERNELS) or not all(
+            math.isfinite(v) for v in values.values()):
+        raise AssertionError(f"bf16 step: kernels {names}, metrics {values}")
+    del G, D, state, builder
+    torch.cuda.empty_cache()
+    return call_log.calls
+
+
+def rms(torch, a, b) -> float:
+    """RMS of a - b, in float64."""
+    return float((a.double() - b.double()).square().mean().sqrt())
+
+
+def bf16_gap(torch, card16, cpu16, card32, what) -> dict:
+    """RMS(card bf16 - CPU bf16) and RMS(card bf16 - card f32), logged with
+    their ratio. Past a few layers the two bf16 routes are as far apart as
+    bf16 is from f32: a rounding that one route's f32 sum puts on the other
+    side of a bf16 step changes the next layer's inputs by an ulp, which
+    moves more roundings, layer after layer (phase 14 logs the same ratio
+    for a card route that rounds exactly as the CPU's does). So the bar of
+    a quarter holds per conv call (``PrimitiveLog``), not end to end."""
+    got, gap = rms(torch, card16, cpu16), rms(torch, card16, card32)
+    log(f"    {what}: RMS card bf16 - CPU bf16 {got:.3e}, card bf16 - card "
+        f"f32 {gap:.3e} ({got / max(gap, 1e-30):.3f} of it)")
+    return {"rms_vs_cpu_bf16": got, "rms_vs_card_f32": gap,
+            "ratio": got / max(gap, 1e-30)}
+
+
+class PrimitiveLog:
+    """Records every conv primitive call of the models' forwards (function,
+    parameters, input, options and output, on the CPU), to replay each on
+    the card with the same input: one conv's rounding at a time."""
+
+    SITES = {"generator": ("equalized_conv2d", "equalized_conv2d_up2x"),
+             "discriminator": ("equalized_conv2d",
+                               "equalized_conv2d_pool_in")}
+
+    def __init__(self):
+        self.calls = []
+
+    @contextlib.contextmanager
+    def recording(self):
+        import importlib
+        from pggan_tpu_torch.ops import primitives
+        mods = {m: importlib.import_module(f"pggan_tpu_torch.models.{m}")
+                for m in self.SITES}
+
+        def wrap(name):
+            fn = getattr(primitives, name)
+
+            def logged(params, x, **kw):
+                y = fn(params, x, **kw)
+                self.calls.append((name, {k: v.detach().clone()
+                                          for k, v in params.items()},
+                                   x.detach().clone(), kw, y.detach()))
+                return y
+            return logged
+        try:
+            for m, names in self.SITES.items():
+                for name in names:
+                    setattr(mods[m], name, wrap(name))
+            yield self
+        finally:
+            for m, names in self.SITES.items():
+                for name in names:
+                    setattr(mods[m], name, getattr(primitives, name))
+
+    def replay(self, torch, device) -> dict:
+        """Each call on ``device`` in bf16 and in f32 from the recorded
+        input: the largest RMS(device bf16 - CPU bf16) / RMS(device bf16 -
+        device f32) over the calls, which must stay under a quarter."""
+        from pggan_tpu_torch.ops import primitives
+        worst, ratios = None, []
+        with torch.no_grad():
+            for name, params, x, kw, want in self.calls:
+                fn = getattr(primitives, name)
+                p = {k: v.to(device) for k, v in params.items()}
+                got = fn(p, x.to(device), **kw).cpu()
+                f32 = fn(p, x.to(device).float(),
+                         **{**kw, "compute_dtype": None}).cpu()
+                r = rms(torch, got, want) / max(rms(torch, got, f32), 1e-30)
+                ratios.append(r)
+                if worst is None or r > worst[0]:
+                    worst = (r, name, tuple(x.shape))
+        log(f"    {len(self.calls)} conv calls of the forwards, each on the "
+            f"card from the CPU's input: RMS card bf16 - CPU bf16 at most "
+            f"{worst[0]:.3f} of card bf16 - card f32 ({worst[1]} "
+            f"{worst[2]}; bar 0.25), median "
+            f"{sorted(ratios)[len(ratios) // 2]:.3f}")
+        if worst[0] > 0.25:
+            raise AssertionError(f"{worst[1]} {worst[2]}: card bf16 against "
+                                 f"CPU bf16 {worst[0]:.3f} of the bf16 gap")
+        return {"calls": len(self.calls), "worst_ratio": worst[0],
+                "median_ratio": sorted(ratios)[len(ratios) // 2]}
+
+
+@contextlib.contextmanager
+def rounding_once_on_the_card(torch):
+    """The card's bf16 convs as the CPU's bf16 route computes them: f32
+    sums of the bf16 operands (TF32 products of bf16 values are exact),
+    rounded once; to show how far apart two routes get that round the same
+    way."""
+    from pggan_tpu_torch.ops import primitives
+    orig = primitives._conv_in
+
+    def once(cd, conv, x, w, **kw):
+        if cd is None:
+            return orig(cd, conv, x, w, **kw)
+        x, w = x.to(cd), w.to(cd)
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            return conv(x.float(), w.float(), **kw).to(cd)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+    primitives._conv_in = once
+    try:
+        yield
+    finally:
+        primitives._conv_in = orig
+
+
+def bf16_serve_phase(torch, card):
+    """Phase 12: a bf16 snapshot of phase 4's random paper-config weights
+    through the generate CLI at depth 8, batch 16 (a fade snapshot: G's fade
+    upsample runs the bf16 kernel), its images against the CPU's bf16 route
+    and the card's f32 serve; then img/s of warm ``sample_images`` calls,
+    bf16 in turns with f32 chain on and chain off (phase 4's stable
+    snapshot), and the device profile of one bf16 chunk."""
+    import numpy as np
+    from pggan_tpu_torch.checkpoint import load_snapshot, save_snapshot
+    from pggan_tpu_torch.models.generator import Generator
+    from pggan_tpu_torch.sampling import sample_images
+    from pggan_tpu_torch.utils.profiling import capture, device_profile
+    paper = dict(dataset_shape=(1, 3, 1024, 1024))
+    out = {}
+    fwd = -(-40 // BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        snaps = {}
+        for i, alpha, cd in ((0, 1.0, "float32"), (0, 1.0, "bfloat16"),
+                             (1, 0.5, "float32"), (1, 0.5, "bfloat16")):
+            G = Generator(**paper, compute_dtype=cd,
+                          generator=torch.Generator().manual_seed(SEED + i))
+            snaps[(i, cd)] = os.path.join(
+                tmp, f"network-snapshot-generator-{cd}-{i:06}.dat")
+            save_snapshot(snaps[(i, cd)], G, depth=8, alpha=alpha)
+            del G
+        imgs, counts = serve(
+            torch, snaps[(1, "bfloat16")],
+            ["--minibatch", str(BATCH), "--num_samples", "40",
+             "--random_seed", str(SEED)],
+            {"upsample2x_bf16": fwd}, "bf16 paper, fade 0.5")
+        out["cli_launches"] = counts
+        if imgs.shape != (40, 3, 1024, 1024) or imgs.dtype != np.float32 \
+                or not np.isfinite(imgs).all():
+            raise AssertionError(f"bf16 serve: {imgs.shape} {imgs.dtype}")
+        n = 2
+        refs = {}
+        for dev, cd in (("cpu", "bfloat16"), ("cuda", "float32")):
+            G, meta = load_snapshot(snaps[(1, cd)], device=dev)
+            refs[(dev, cd)] = torch.from_numpy(sample_images(
+                G, meta["depth"], meta["alpha"], n,
+                rng=np.random.RandomState(SEED)).transpose(0, 3, 1, 2))
+            del G
+        out["images"] = bf16_gap(
+            torch, torch.from_numpy(imgs[:n]), refs[("cpu", "bfloat16")],
+            refs[("cuda", "float32")], f"{n} served images (1024 px)")
+        scale = float(refs[("cuda", "float32")].double().square().mean()
+                      .sqrt())
+        if max(out["images"]["rms_vs_cpu_bf16"],
+               out["images"]["rms_vs_card_f32"]) > BF16_IMAGE_RMS * scale:
+            raise AssertionError(f"bf16 serve: images {out['images']}, "
+                                 f"RMS of the f32 images {scale:.3e}")
+        del imgs, refs
+
+        # img/s in turns: bf16, f32 chain on, f32 chain off (stable)
+        models = {}
+        for route, cd, chain in (("bf16", "bfloat16", False),
+                                 ("f32_chain_on", "float32", True),
+                                 ("f32_chain_off", "float32", False)):
+            G, meta = load_snapshot(snaps[(0, cd)], device="cuda")
+            G.inference_chain = chain
+            models[route] = G
+        n = 3 * BATCH
+
+        def serve_n(route):
+            return sample_images(models[route], 8, 1.0, n, minibatch=BATCH,
+                                 rng=np.random.RandomState(SEED))
+        for route in models:
+            serve_n(route)  # warm
+        rates = {k: [] for k in models}
+        order = list(models)
+        for turn in range(4):
+            for route in order[turn % 3:] + order[:turn % 3]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                serve_n(route)
+                torch.cuda.synchronize()
+                rates[route].append(n / (time.perf_counter() - t0))
+        out["img_per_s_all"] = rates
+        out["img_per_s"] = {k: sorted(v)[len(v) // 2] for k, v in
+                            rates.items()}
+        log(f"  serves of {n} images, depth 8, batch {BATCH}, in turns: "
+            + ", ".join(f"{k} {', '.join(f'{r:.2f}' for r in v)} img/s"
+                        for k, v in rates.items()) + f" (on {card})")
+        prof, wall_ms = capture(lambda: sample_images(
+            models["bf16"], 8, 1.0, BATCH, minibatch=BATCH,
+            rng=np.random.RandomState(SEED)))
+        out["profile"] = device_profile(
+            prof, wall_ms, 1, f"bf16 serve profile, one chunk of {BATCH}",
+            "chunk", log=log)
+        del models
+    torch.cuda.empty_cache()
+    return out
+
+
+def bf16_train_phase(torch):
+    """Phase 13: the bf16 paper configuration's depth-8 step (batch 3),
+    profiled (``profile_phase``, one warm step of each graph, eager and
+    replayed: wall ms of the synchronised step under the profiler, busy
+    share, host launches, the replay running the eager step's kernels, the
+    top kernels; a bf16 step takes over a second, so these are its times),
+    the peak memory, then 20 replays of the fade graph: finite metrics,
+    parameters float32 and finite. Returns the numbers, the eager calls'
+    launches and the kernels the replays ran."""
+    from pggan_tpu_torch.ops import _build
+    out = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.LAUNCHES.clear()
+
+    def replays(G, D, state, builder):
+        out["launches_eager"] = dict(_build.LAUNCHES)
+        step = builder.step_fn(TRAIN_DEPTH, TRAIN_BATCH, True)
+        reals = builder.prep_fn()(uint8_reals(torch, builder, TRAIN_DEPTH,
+                                              SEED).cuda(), 0.5)
+        times = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(state, reals, 0.5, LR, LR)
+            values = {k: float(v) for k, v in metrics.items()}
+            times.append((time.perf_counter() - t0) * 1e3)
+            if not all(math.isfinite(v) for v in values.values()):
+                raise AssertionError(f"bf16 replay: metrics {values}")
+        replayed = collections.Counter()
+        for key in builder.graphed_keys():
+            s = builder.step_fn(*key)
+            for name, n in s.captured.items():
+                replayed[name] += n * s.replays
+        params = [*G.parameters(), *D.parameters()]
+        if not all(p.dtype == torch.float32 and bool(torch.isfinite(p).all())
+                   for p in params):
+            raise AssertionError("bf16 training left a parameter not f32 or "
+                                 "not finite")
+        out.update(replay_ms_fade=sorted(times)[len(times) // 2],
+                   replay_ms_all_fade=times, replays_fade=step.replays,
+                   kernels_run_in_replays=dict(replayed),
+                   peak_bytes=torch.cuda.max_memory_allocated())
+        log(f"  20 more replays of the fade graph: {out['replay_ms_fade']:.1f}"
+            f" ms a replay (median), finite ({values}); {len(params)} "
+            f"parameters float32 and finite; peak memory "
+            f"{out['peak_bytes'] / 2**30:.2f} GiB; launches (eager calls) "
+            f"{out['launches_eager']}; kernels run in replays "
+            f"{dict(replayed)}")
+
+    out["profile"] = profile_phase(torch, steps=1, compute_dtype="bfloat16",
+                                   then=replays)
+    for name in BF16_KERNELS:
+        if not out["launches_eager"].get(name) or \
+                not out["kernels_run_in_replays"].get(name):
+            raise AssertionError(f"{name}: not launched by the bf16 eager "
+                                 f"steps or not run in their replays")
+    top = out["profile"]["graphed_fade"]["top_kernels_ms_per_step"]
+    log("  the replayed bf16 fade step's top kernels: " + "; ".join(
+        f"{ms:.2f} ms {name[:90]}" for name, ms in list(top.items())[:6]))
+    return out, out["launches_eager"], out["kernels_run_in_replays"]
+
+
+# The bf16 bars on the card against the CPU's bf16 route (PERF.md).
+# Served images: card bf16 within this RMS of the f32 images' RMS, from
+# the CPU's bf16 images and from the card's f32 ones (bf16 rounding
+# everywhere puts them 1.7e-2 apart at an RMS near 1).
+BF16_IMAGE_RMS = 0.05
+# The depth-6 step, end to end: the JAX package's own bf16 bars
+# (tests/test_mixed_precision.py:23-37), card bf16 against CPU bf16:
+# images within 0.15, each loss within 0.2 (1 + |loss|).
+BF16_IMAGE_MAX, BF16_LOSS_TOL = 0.15, 0.2
+# The updated parameters, card bf16 against CPU bf16, set by measurement:
+# over all parameters, |difference| / |update| in the 2-norm. Adam's first
+# update is about lr * sign(g), so an element whose gradient the two
+# routes take to other signs moves 2 lr apart. Measured 0.220 (card bf16
+# against card f32: 0.258; this script on an H100 80GB HBM3 at 700 W).
+BF16_UPDATE_TOL = 0.5
+
+
+def bf16_step_against_cpu(torch, device="cuda"):
+    """Phase 14: one depth-6 bf16 fade step of the paper configuration on
+    the card and on the CPU's bf16 route (and an f32 step on the card),
+    with the same parameters, reals, latents and GP mixing factors, lr LR.
+    Every conv call of the forwards of G (the step's first latents) and D
+    (G's images) replayed on the card from the CPU's input: RMS(card bf16
+    - CPU bf16) at most 1/4 of RMS(card bf16 - card f32) (``PrimitiveLog``).
+    The step's four losses: the same bar over their vector. The images end
+    to end, whose ratio is logged (and that of a card route that rounds as
+    the CPU's, ``rounding_once_on_the_card``): the JAX package's own bf16
+    bar. The updated parameters within BF16_UPDATE_TOL."""
+    import numpy as np
+    from pggan_tpu_torch.ops import _build
+    from pggan_tpu_torch.training import TrainStepBuilder, init_state
+    depth, alpha = CHECK_DEPTH, 0.5
+    rng = np.random.RandomState(SEED)
+    lat = (TRAIN_BATCH, paper_models(torch, "meta")[0].latent_size)
+    draws = [("normal", rng.randn(*lat).astype(np.float32)),
+             ("uniform", rng.uniform(size=TRAIN_BATCH).astype(np.float32)),
+             ("normal", rng.randn(*lat).astype(np.float32))]
+    z = torch.from_numpy(draws[0][1])
+    runs, prims = {}, PrimitiveLog()
+    for i, (dev, cd) in enumerate((("cpu", "bfloat16"), (device, "bfloat16"),
+                                   (device, "float32"))):
+        G, D = paper_models(torch, dev, cd)
+        state = init_state(G, D, seed=SEED)
+        builder = TrainStepBuilder(G, D, cuda_graphs=False)
+        it = iter(draws)
+
+        def noise(kind, shape, it=it, dev=dev):
+            k, v = next(it)
+            assert (k, tuple(shape)) == (kind, v.shape)
+            return torch.from_numpy(v).to(dev)
+        record = prims.recording() if i == 0 else contextlib.nullcontext()
+        with torch.no_grad(), record:
+            images = G(z.to(dev), depth, alpha)
+            D(images, depth, alpha)
+            images = images.cpu()
+        if i == 1:
+            with torch.no_grad(), rounding_once_on_the_card(torch):
+                once = G(z.to(dev), depth, alpha).cpu()
+        before = [p.detach().cpu().clone()
+                  for p in [*G.parameters(), *D.parameters()]]
+        u8 = uint8_reals(torch, builder, depth, SEED + 10).to(dev)
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        metrics = builder.step_fn(depth, TRAIN_BATCH, True)(
+            state, builder.prep_fn()(u8, alpha), alpha, LR, LR, noise=noise)
+        values = {k: float(v) for k, v in metrics.items()}
+        log(f"  {dev} {cd}: {time.perf_counter() - t0:.1f} s, {values}, "
+            f"launches {dict(_build.LAUNCHES)}")
+        after = [p.detach().cpu().clone()
+                 for p in [*G.parameters(), *D.parameters()]]
+        runs[(dev, cd)] = (images, values, before, after,
+                           dict(_build.LAUNCHES))
+        del G, D, state, builder
+    cpu16, card16, card32 = (runs[k] for k in (
+        ("cpu", "bfloat16"), (device, "bfloat16"), (device, "float32")))
+    for name in BF16_KERNELS:
+        if device == "cuda" and not card16[4].get(name):
+            raise AssertionError(f"depth-6 bf16 step: {name} not launched")
+    out = {"conv_calls": prims.replay(torch, device)}
+    out["images"] = bf16_gap(torch, card16[0], cpu16[0], card32[0],
+                             f"depth-{depth} images")
+    out["images_rounding_once_on_the_card"] = bf16_gap(
+        torch, once, cpu16[0], card32[0],
+        f"depth-{depth} images, the card rounding as the CPU's route")
+    keys = sorted(card16[1])
+    vec = [torch.tensor([r[1][k] for k in keys]) for r in (card16, cpu16,
+                                                           card32)]
+    out["losses"] = bf16_gap(torch, *vec, f"losses {keys}")
+    if out["losses"]["ratio"] > 0.25:  # the losses average the chaos out
+        raise AssertionError(f"depth-{depth} bf16 losses, card against CPU:"
+                             f" {out['losses']}")
+    img_err = float((card16[0] - cpu16[0]).abs().max())
+    loss_err = {k: abs(card16[1][k] - cpu16[1][k]) for k in keys}
+    if img_err > BF16_IMAGE_MAX or any(
+            loss_err[k] > BF16_LOSS_TOL * (1 + abs(cpu16[1][k]))
+            for k in keys):
+        raise AssertionError(f"depth-{depth} bf16, card against CPU: images "
+                             f"{img_err:.3e} apart, losses {loss_err}")
+    out.update(images_max_abs_err=img_err, losses_abs_err=loss_err)
+
+    def overall(before, got, want):
+        num = sum(float(((g - b) - (w - b)).square().sum())
+                  for b, g, w in zip(before, got, want))
+        den = sum(float((w - b).square().sum())
+                  for b, w in zip(before, want))
+        return (num / max(den, 1e-30)) ** 0.5
+    vs_cpu = update_errors(torch, card16[2], card16[3], cpu16[3])
+    vs_f32 = update_errors(torch, card16[2], card16[3], card32[3])
+    vs_cpu["overall"] = overall(card16[2], card16[3], cpu16[3])
+    vs_f32["overall"] = overall(card16[2], card16[3], card32[3])
+    out["updates_vs_cpu_bf16"], out["updates_vs_card_f32"] = vs_cpu, vs_f32
+    log(f"    images: card bf16 against CPU bf16 at most {img_err:.3e} apart "
+        f"(bar {BF16_IMAGE_MAX}); losses {loss_err} (bar {BF16_LOSS_TOL} "
+        f"(1 + |loss|))")
+    log(f"    updated parameters, card bf16 against CPU bf16: |difference| /"
+        f" |update| over all {vs_cpu['overall']:.3e} (bar "
+        f"{BF16_UPDATE_TOL}), largest of a tensor "
+        f"{vs_cpu['update_err_over_norm']:.3e} over "
+        f"{vs_cpu['tensors_moved']} tensors; against card f32 "
+        f"{vs_f32['overall']:.3e}, largest {vs_f32['update_err_over_norm']:.3e}")
+    if vs_cpu["overall"] > BF16_UPDATE_TOL:
+        raise AssertionError(f"depth-{depth} bf16 updates, card against CPU:"
+                             f" {vs_cpu['overall']:.3e}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def bf16_cli_phase(torch, keep_dir, device="cuda"):
+    """Phase 15: a bf16 progressive run of the paper configuration through
+    ``cli.train`` (in this process, so its launches count) from depth 0 to
+    8 on phase 9's shortened schedule to CLI_TOTAL kimg, no resume: the
+    bf16 pool and upsample launch in eager first calls and run in replays,
+    no f32 kernel runs, the last snapshot's config says bfloat16 and loads
+    through ``load_snapshot``; sec/kimg per tick. The snapshot is copied
+    into ``keep_dir``. ``device`` lets a scratch script rehearse it on the
+    CPU."""
+    import glob
+    from pggan_tpu_torch.checkpoint import load_snapshot
+    from pggan_tpu_torch.cli import train as cli
+    from pggan_tpu_torch.ops import _build
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        argv = cli_argv(root, CLI_TOTAL, "--Generator.compute_dtype",
+                        "bfloat16", "--Discriminator.compute_dtype",
+                        "bfloat16", "--device", device)
+        _build.LAUNCHES.clear()
+        sync(torch, device)
+        t0 = time.perf_counter()
+        trainer = cli.main(cli.get_structured_params(
+            vars(cli.build_parser().parse_args(argv))))
+        sync(torch, device)
+        out["run_s"] = time.perf_counter() - t0
+        # cli.main resets the peak when the run starts
+        out["peak_bytes"] = (torch.cuda.max_memory_allocated()
+                             if device == "cuda" else None)
+        launches = dict(_build.LAUNCHES)
+        replayed = collections.Counter()
+        for key in trainer.builder.graphed_keys():
+            step = trainer.builder.step_fn(*key)
+            for name, n in step.captured.items():
+                replayed[name] += n * step.replays
+        out["graphs_captured"] = len(trainer.builder.graphed_keys())
+        depth = trainer.depth
+        del trainer
+        run, = glob.glob(os.path.join(root, "001-*"))
+        rows = [json.loads(ln) for ln in open(os.path.join(run,
+                                                           "metrics.jsonl"))]
+        snap = max(glob.glob(os.path.join(
+            run, "network-snapshot-generator-*.dat")), key=os.path.getmtime)
+        G, meta = load_snapshot(snap, device=device)
+        if depth != TRAIN_DEPTH or G.compute_dtype != "bfloat16" or \
+                meta["depth"] != TRAIN_DEPTH or not all(
+                    math.isfinite(rows[-1][f"{k}.epoch_mean"])
+                    for k in cli.LOSSES):
+            raise AssertionError(f"bf16 run: depth {depth}, snapshot "
+                                 f"{G.compute_dtype} at {meta}, last tick "
+                                 f"{rows[-1]}")
+        out["snapshot"] = shutil.copy(snap, os.path.join(
+            keep_dir, "network-snapshot-generator-bf16.dat"))
+        del G
+    per_depth = collections.defaultdict(list)
+    for r in rows:
+        per_depth[int(r["depth"])].append(r["sec.kimg"])
+    out.update(ticks=len(rows), launches_eager=launches,
+               kernels_run_in_replays=dict(replayed),
+               sec_per_kimg_by_depth=dict(sorted(per_depth.items())))
+    log(f"  bf16 run: {len(rows)} ticks to depth {depth} in "
+        f"{out['run_s']:.1f} s, {out['graphs_captured']} graphs, peak "
+        f"{(out['peak_bytes'] or 0) / 2**30:.2f} GiB; snapshot config "
+        f"bfloat16; "
+        f"launches {launches}; kernels run in replays {dict(replayed)}")
+    log("  sec/kimg per tick by the depth it ended at: " + "; ".join(
+        f"{d}: {', '.join(f'{x:.1f}' for x in v)}"
+        for d, v in sorted(per_depth.items())))
+    for name in BF16_KERNELS:
+        if device == "cuda" and (not launches.get(name)
+                                 or not replayed.get(name)):
+            raise AssertionError(f"{name}: not launched by the bf16 run or "
+                                 f"not run in its replays")
+    f32 = [k for k in launches if k not in BF16_KERNELS]
+    if f32:
+        raise AssertionError(f"the bf16 run launched f32 kernels {f32}")
+    torch.cuda.empty_cache()
+    return out, launches, dict(replayed)
+
+
+def export_phase(torch, f32_snapshot, bf16_snapshot, root):
+    """Phase 16: ``cli.export`` of phase 9's depth-8 f32 snapshot at batch
+    16 and with a polymorphic batch, and of phase 15's bf16 snapshot, each
+    verified against the direct forward on the card; one artifact loaded
+    and run on the card by a process that imports neither package; the
+    export launches no kernel while an ordinary forward of the same G
+    does; a program traced on the CPU and moved to the card against the
+    one traced there; one batch-16 call of the exported program timed
+    beside the direct forward and ``sample_images`` chain off."""
+    import numpy as np
+    from pggan_tpu_torch.checkpoint import load_snapshot, save_snapshot
+    from pggan_tpu_torch.cli.export import cli_main
+    from pggan_tpu_torch.export import (export_generator, exportable,
+                                        load_exported)
+    from pggan_tpu_torch.ops import _build
+    from pggan_tpu_torch.sampling import sample_images
+    out = {}
+    arts = {}
+    for tag, snap, batch in (("f32_batch16", f32_snapshot, 16),
+                             ("f32_polymorphic", f32_snapshot, -1),
+                             ("bf16_batch16", bf16_snapshot, 16)):
+        path = os.path.join(root, tag)
+        t0 = time.perf_counter()
+        arts[tag] = cli_main(["--generator_path", snap, "--out", path,
+                              "--batch", str(batch), "--verify", "True"])
+        info = json.load(open(path + ".json"))
+        out[tag] = {"seconds": time.perf_counter() - t0,
+                    "artifact_bytes": info["artifact_bytes"],
+                    "in_avals": info["in_avals"],
+                    "out_avals": info["out_avals"],
+                    "platforms": info["platforms"]}
+        log(f"  {tag}: exported and verified in {out[tag]['seconds']:.1f} s,"
+            f" {info['artifact_bytes'] / 2**20:.1f} MiB, "
+            f"{info['in_avals']} -> {info['out_avals']} on "
+            f"{info['platforms']}")
+
+    # the artifact in a process that imports neither package
+    z = np.random.RandomState(SEED).randn(16, 512).astype(np.float32)
+    np.save(os.path.join(root, "z.npy"), z)
+    # the program carries no TF32 setting: the consumer turns cuDNN's TF32
+    # off, as the port's entry points do, for f32 convs; both runs hold
+    # cuDNN to its deterministic algorithms (G's transposed convs may sum
+    # with atomics otherwise)
+    code = (
+        "import sys, numpy as np, torch\n"
+        "torch.backends.cudnn.allow_tf32 = False\n"
+        "torch.backends.cudnn.deterministic = True\n"
+        f"p = torch.export.load({arts['f32_batch16']!r})\n"
+        "z = torch.from_numpy(np.load('z.npy')).cuda()\n"
+        "out = p.module()(z)\n"
+        "np.save('out.npy', out.cpu().numpy())\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('pggan_tpu', 'pggan_tpu_torch', 'jax')]\n"
+        "assert not bad, bad\n"
+        "print(torch.cuda.get_device_name(0))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        raise AssertionError(f"the bare process failed: {res.stderr[-3000:]}")
+    program = load_exported(arts["f32_batch16"]).module()
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.no_grad():
+            here = program(torch.from_numpy(z).cuda()).cpu().numpy()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    bare = np.load(os.path.join(root, "out.npy"))
+    out["bare_process_max_abs_diff"] = float(np.abs(bare - here).max())
+    log(f"  a process importing torch alone ran the batch-16 artifact on "
+        f"{res.stdout.strip()}: max |difference| to this process's run "
+        f"{out['bare_process_max_abs_diff']:.3e}")
+    if out["bare_process_max_abs_diff"] > 1e-5:
+        raise AssertionError("the bare process's images differ")
+
+    # export launches nothing; an ordinary forward of the same G does
+    G, meta = load_snapshot(f32_snapshot, device="cuda")
+    fade_snap = os.path.join(root, "fade.dat")
+    save_snapshot(fade_snap, G, meta["depth"], 0.5)
+    G, _ = load_snapshot(fade_snap, device="cuda")
+    _build.LAUNCHES.clear()
+    on_card = export_generator(G, 8, 0.5, 4)
+    export_launches = dict(_build.LAUNCHES)
+    zt = torch.from_numpy(z[:4]).cuda()
+    # the forwards compared below run cuDNN's deterministic algorithms,
+    # which sum in a fixed order, so that only the programs can differ
+    torch.backends.cudnn.deterministic = True
+    with torch.no_grad():
+        direct = exportable(G)(zt, 8, 0.5)
+    forward_launches = dict(_build.LAUNCHES)
+    log(f"  launches while exporting a fade (alpha 0.5) G: "
+        f"{export_launches}; after one ordinary forward of it: "
+        f"{forward_launches}")
+    if export_launches or forward_launches != {"upsample2x": 1}:
+        raise AssertionError("the export reached a kernel, or the forward "
+                             "did not")
+    G_cpu, _ = load_snapshot(fade_snap, device="cpu")
+    moved = export_generator(G_cpu, 8, 0.5, 4, platforms=("cuda",))
+    try:
+        with torch.no_grad():
+            a = on_card.module()(zt)
+            b = moved.module()(zt)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    out["moved_vs_traced_on_card"] = float((a - b).abs().max())
+    out["traced_vs_direct"] = float((a - direct).abs().max())
+    log(f"  traced on the CPU and moved to the card, against traced on the "
+        f"card: max |difference| {out['moved_vs_traced_on_card']:.3e} "
+        f"(traced against the direct forward {out['traced_vs_direct']:.3e})")
+    if out["moved_vs_traced_on_card"] > 1e-5:
+        raise AssertionError("the moved program computes otherwise")
+    del G, G_cpu, on_card, moved, a, b, direct
+
+    # one batch-16 call, the exported program beside the direct forward
+    G, meta = load_snapshot(f32_snapshot, device="cuda")
+    G.inference_chain = False
+    zt = torch.from_numpy(z).cuda()
+    calls = {"exported": lambda: program(zt),
+             "direct_chain_off": lambda: G(zt, 8, 1.0, False),
+             "sample_images_chain_off": lambda: sample_images(
+                 G, 8, 1.0, 16, minibatch=16,
+                 rng=np.random.RandomState(SEED))}
+    times = {k: [] for k in calls}
+    with torch.no_grad():
+        for fn in calls.values():
+            fn()
+        for _ in range(5):
+            for k, fn in calls.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times[k].append((time.perf_counter() - t0) * 1e3)
+    out["batch16_ms"] = {k: sorted(v)[2] for k, v in times.items()}
+    out["batch16_ms_all"] = times
+    log("  one batch-16 call (ms, median of 5, synchronised): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in out["batch16_ms"].items()))
+    del G, program
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -1912,6 +2583,11 @@ def main() -> int:
         f"{BATCH}, on {card}")
     checks = KernelChecks(torch)
     checks.run()
+    log(f"  the bf16 pool and upsample at every shape of one bf16 depth-8 "
+        f"fade train step (batch {TRAIN_BATCH}), against their bf16 plain "
+        f"versions bit for bit")
+    checks.train_shapes(bf16_step_calls(torch), BF16_KERNELS,
+                        "bf16 fade step")
     log(f"phase 3 passed ({time.perf_counter() - t_start:.0f} s so far)")
 
     # phase 4: the slice, through the CLI
@@ -1944,6 +2620,12 @@ def main() -> int:
     log(f"phase 8: torch.profiler over warm depth-8 train steps, batch "
         f"{TRAIN_BATCH}, eager and replayed")
     profile = profile_phase(torch)
+    device_ms = device_ms_by_kernel(profile["graphed_fade"])
+    for name, ms in sorted(device_ms.items()):
+        bound = checks.sums["train"].get(name, {}).get("bound_ms")
+        log(f"  {name:20s} device {ms:.3f} ms a replayed fade step"
+            + (f", bound {bound:.3f} ms: {bound / ms:.1%} of its bound"
+               if bound else ""))
     log(f"phase 8 passed ({time.perf_counter() - t_start:.0f} s so far)")
 
     # phase 9: the progressive run through the train CLI, and its resume
@@ -1980,12 +2662,63 @@ def main() -> int:
     log(f"phase 11: {2 * EVAL_SAMPLES} PNGs at 1024 px -> "
         f"DefaultImageFolderDataset(preload='disk') -> eval CLI on phase "
         f"9's depth-8 snapshot, {EVAL_SAMPLES} samples, on {card}")
+    f32_snapshot = train["progressive_run"].pop("snapshot")
     with tempfile.TemporaryDirectory() as root:
-        evaluation, eval_launches = eval_phase(
-            torch, root, train["progressive_run"].pop("snapshot"))
+        evaluation, eval_launches = eval_phase(torch, root, f32_snapshot)
         evaluation["h5"] = h5_phase(torch, root)
-    keep.cleanup()
     log(f"phase 11 passed ({time.perf_counter() - t_start:.0f} s so far)")
+
+    # phases 12-15: bf16 mixed precision on the card
+    log(f"phase 12: serve a bf16 snapshot of phase 4's weights (depth 8, "
+        f"batch {BATCH}), in turns with f32 chain on and off, on {card}")
+    bf16 = {"serve": bf16_serve_phase(torch, card)}
+    bf16_serve_launches = bf16["serve"]["cli_launches"]
+    log(f"phase 12 passed ({time.perf_counter() - t_start:.0f} s so far)")
+    log(f"phase 13: the bf16 paper configuration's depth-8 train step, batch "
+        f"{TRAIN_BATCH}, eager and replayed, profiled, on {card}")
+    bf16["train"], bf16_train_launches, bf16_train_replayed = \
+        bf16_train_phase(torch)
+    bf16_device_ms = device_ms_by_kernel(
+        bf16["train"]["profile"]["graphed_fade"])
+    for name in BF16_KERNELS:
+        bound = checks.sums["train"][name]["bound_ms"]
+        log(f"  {name:20s} device {bf16_device_ms.get(name, 0.0):.3f} ms a "
+            f"replayed bf16 fade step, bound {bound:.3f} ms: "
+            f"{bound / max(bf16_device_ms.get(name, 0.0), 1e-30):.1%} of its "
+            f"bound")
+    device_ms.update({k: bf16_device_ms.get(k, 0.0) for k in BF16_KERNELS})
+    f32p, bfp = profile, bf16["train"]["profile"]
+    log("  bf16 beside f32 (phase 8, wall ms of a step under the profiler, "
+        "device busy share, host launches a step): " + "; ".join(
+            f"{g} {f32p[g]['wall_ms_per_step']:.1f} / "
+            f"{bfp[g]['wall_ms_per_step']:.1f} ms, "
+            f"{f32p[g]['device_busy_share']:.1%} / "
+            f"{bfp[g]['device_busy_share']:.1%}, "
+            f"{f32p[g]['host_launches_per_step']:.0f} / "
+            f"{bfp[g]['host_launches_per_step']:.0f}" for g in f32p)
+        + f"; replayed fade {train['graphs']['graphed_ms_fade']:.1f} ms "
+        f"(phase 5) / {bf16['train']['replay_ms_fade']:.1f} ms; peak memory "
+        f"{train['graphs']['peak_bytes'] / 2**30:.2f} / "
+        f"{bf16['train']['peak_bytes'] / 2**30:.2f} GiB")
+    log(f"phase 13 passed ({time.perf_counter() - t_start:.0f} s so far)")
+    log(f"phase 14: one depth-{CHECK_DEPTH} bf16 train step, card vs the "
+        f"CPU's bf16 route (and the card's f32 step)")
+    bf16["depth6_vs_cpu"] = bf16_step_against_cpu(torch)
+    log(f"phase 14 passed ({time.perf_counter() - t_start:.0f} s so far)")
+    log(f"phase 15: bf16 progressive run of the paper configuration through "
+        f"the train CLI, depth 0 to {TRAIN_DEPTH}, to {CLI_TOTAL} kimg")
+    bf16["progressive_run"], bf16_run_launches, bf16_run_replayed = \
+        bf16_cli_phase(torch, keep.name)
+    bf16_snapshot = bf16["progressive_run"].pop("snapshot")
+    log(f"phase 15 passed ({time.perf_counter() - t_start:.0f} s so far)")
+
+    # phase 16: the export
+    log("phase 16: export phase 9's f32 and phase 15's bf16 depth-8 "
+        "snapshots through the export CLI")
+    with tempfile.TemporaryDirectory() as root:
+        export = export_phase(torch, f32_snapshot, bf16_snapshot, root)
+    keep.cleanup()
+    log(f"phase 16 passed ({time.perf_counter() - t_start:.0f} s so far)")
 
     # the result lines. ms, plain_ms, library_ms and the bounds: per
     # depth-8 fade train step (batch 3) for the kernels the step runs, per
@@ -1996,7 +2729,7 @@ def main() -> int:
     # beside it, with the kernels the runs' graph replays ran
     kernels = []
     for name, (src, rep) in KERNELS.items():
-        per_step = name in TRAIN_KERNELS
+        per_step = name not in SERVE_ONLY
         t = checks.sums["train" if per_step else "serve"][name]
         by_path = {"serve": serve_launches.get(name, 0),
                    "train_step_eager": train_launches.get(name, 0),
@@ -2005,7 +2738,14 @@ def main() -> int:
                    "sound_train": sound_launches.get(name, 0),
                    "sound_train_replayed": sound_replayed.get(name, 0),
                    "generate_sound": gen_launches.get(name, 0),
-                   "eval": eval_launches.get(name, 0)}
+                   "eval": eval_launches.get(name, 0),
+                   "bf16_serve": bf16_serve_launches.get(name, 0),
+                   "bf16_train_step_eager": bf16_train_launches.get(name, 0),
+                   "bf16_train_step_replayed":
+                       bf16_train_replayed.get(name, 0),
+                   "bf16_progressive_run": bf16_run_launches.get(name, 0),
+                   "bf16_progressive_run_replayed":
+                       bf16_run_replayed.get(name, 0)}
         log(f"  {name}: launches by path {by_path}")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -2018,9 +2758,15 @@ def main() -> int:
             "bound_by": ("bytes" if t["bytes_bound_ms"]
                          >= t["operations_bound_ms"] else "operations"),
             "fma_bound_ms": t["fma_bound_ms"],
+            "burst_ms": t["burst_ms"],
             **({"unchained_ms": t["unchained_ms"]} if name in SERVE_ONLY
-               else {"burst_ms": t["burst_ms"]}),
-            "per": "train_step_depth8" if per_step else "serve_forward_depth8"})
+               else {"device_ms_replayed": device_ms.get(name),
+                     "device_share_of_bound":
+                         t["bound_ms"] / device_ms[name]
+                         if device_ms.get(name) else None}),
+            "per": ("serve_forward_depth8" if not per_step else
+                    "train_step_depth8_bf16" if name in BF16_KERNELS else
+                    "train_step_depth8")})
     print(json.dumps({"serve": {"img_per_s": rate, "depth": 8,
                                 "batch": BATCH, "profile": serve_prof,
                                 "card": card_line}}))
@@ -2028,6 +2774,8 @@ def main() -> int:
     print(json.dumps({"profile": {**profile, "card": card_line}}))
     print(json.dumps({"sound": {**sound, "card": card_line}}))
     print(json.dumps({"eval": {**evaluation, "card": card_line}}))
+    print(json.dumps({"bf16": {**bf16, "card": card_line}}))
+    print(json.dumps({"export": {**export, "card": card_line}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

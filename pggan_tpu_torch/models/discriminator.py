@@ -15,7 +15,9 @@ weights and an (out, in) dense weight.
 
 ``pallas_tail`` keeps its name so that configurations carry over; here it
 means "the NHCW head on the hand-written kernels". ``compute_dtype=
-'bfloat16'`` is not ported yet.
+'bfloat16'`` runs every conv in bf16 and turns the head off, as the JAX
+package does (``pggan_tpu/models/discriminator.py:142``): its NCHW pools
+run the bf16 pool kernel, the fade blend and the final dense layer float32.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import math
 import torch
 from torch import nn
 
+from pggan_tpu_torch.models.generator import compute_torch_dtype
 from pggan_tpu_torch.ops import spatial
 from pggan_tpu_torch.ops.primitives import (
     avg_pool_2x,
@@ -59,12 +62,7 @@ class Discriminator(nn.Module):
                  fused_scale: bool = True, pallas_tail: bool = True, *,
                  device=None, generator: torch.Generator | None = None):
         super().__init__()
-        if str(compute_dtype) in ("bfloat16", "bf16"):
-            raise NotImplementedError(
-                "compute_dtype='bfloat16' is not ported yet; the port trains "
-                "float32")
-        if str(compute_dtype) != "float32":
-            raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
+        self._compute = compute_torch_dtype(compute_dtype)
         self.dataset_shape = tuple(int(d) for d in dataset_shape)
         self.fmap_base, self.fmap_decay, self.fmap_max = (
             fmap_base, fmap_decay, fmap_max)
@@ -110,7 +108,7 @@ class Discriminator(nn.Module):
             p, x, padding=pad, wscale=self.wscale, act=self.act,
             use_pixelnorm=self.pixelnorm if use_pixelnorm is None
             else use_pixelnorm,
-            eps=self.eps)
+            eps=self.eps, compute_dtype=self._compute)
 
     def _fromrgb(self, p, x):
         # act, never pixelnorm (reference network.py:145,160)
@@ -129,8 +127,9 @@ class Discriminator(nn.Module):
     # -- the NHCW head -------------------------------------------------------------
     def _pallas_span(self, depth: int) -> int:
         """How many leading stages (the entry block and the DBlocks after
-        it) run NHCW (``pggan_tpu/models/discriminator.py:131-153``)."""
-        if not self.pallas_tail or depth == 0:
+        it) run NHCW (``pggan_tpu/models/discriminator.py:131-153``). f32
+        only."""
+        if not self.pallas_tail or self._compute is not None or depth == 0:
             return 0
         if not spatial.stage_in_envelope(4 * 2 ** depth, self.nf(depth + 1),
                                          self.nf(depth)):
@@ -203,14 +202,18 @@ class Discriminator(nn.Module):
                 if self.fused_scale:
                     prev = equalized_conv2d_pool_in(
                         p["fromrgb"], x, wscale=self.wscale, act=self.act,
-                        use_pixelnorm=False, eps=self.eps)
+                        use_pixelnorm=False, eps=self.eps,
+                        compute_dtype=self._compute)
                 else:
                     prev = self._fromrgb(p, avg_pool_2x(x))
-                h = h * alpha + (1.0 - alpha) * prev
+                # in f32, as JAX's bf16 times its f32 alpha promotes
+                # (torch would keep bf16 against a 0-d f32 tensor)
+                h = h.float() * alpha + (1.0 - alpha) * prev.float()
             start = depth
         for i in range(start, 0, -1):
             h = self._block(blocks[n - i], h, is_last=(i == 1), first=False,
                             stat_groups=stat_groups)
             if i > 1:
                 h = avg_pool_2x(h)
-        return equalized_dense(self.linear, h.reshape(h.shape[0], -1))
+        return equalized_dense(self.linear,
+                               h.reshape(h.shape[0], -1).to(torch.float32))

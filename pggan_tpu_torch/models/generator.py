@@ -13,7 +13,11 @@ NHCW tail on the hand-written kernels from the stage that
 ``pallas_tail`` keeps its name so that snapshots load in both packages;
 here it means "the NHCW tail on the hand-written kernels".
 ``inference_chain`` fuses each tail block's conv pair into the forward-only
-chain kernel, for serving. ``compute_dtype='bfloat16'`` is not ported yet.
+chain kernel, for serving. ``compute_dtype='bfloat16'`` runs every conv in
+bf16 (``ops/primitives.py``) and turns the tail off, and the chain with
+it, as the JAX package does (``pggan_tpu/models/generator.py:162``); the
+fade's upsample then runs the bf16 upsample kernel, and the images come
+out float32.
 """
 
 from __future__ import annotations
@@ -33,6 +37,16 @@ from pggan_tpu_torch.ops.primitives import (
     pixelnorm,
     upsample_nearest_2x,
 )
+
+def compute_torch_dtype(compute_dtype: str):
+    """The convs' operand dtype for a ``compute_dtype`` setting: None for
+    float32, ``torch.bfloat16`` for 'bfloat16' (or 'bf16')."""
+    if str(compute_dtype) in ("bfloat16", "bf16"):
+        return torch.bfloat16
+    if str(compute_dtype) != "float32":
+        raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
+    return None
+
 
 # The constructor fields that define a Generator; a snapshot's config holds
 # exactly these (pggan_tpu/checkpoint.py:model_config).
@@ -74,12 +88,7 @@ class Generator(nn.Module):
                  pallas_tail: bool = True, inference_chain: bool = False, *,
                  device=None, generator: torch.Generator | None = None):
         super().__init__()
-        if str(compute_dtype) in ("bfloat16", "bf16"):
-            raise NotImplementedError(
-                "compute_dtype='bfloat16' is not ported yet; the port serves "
-                "float32")
-        if str(compute_dtype) != "float32":
-            raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
+        self._compute = compute_torch_dtype(compute_dtype)
         self.dataset_shape = tuple(int(d) for d in dataset_shape)
         self.fmap_base, self.fmap_decay, self.fmap_max = (
             fmap_base, fmap_decay, fmap_max)
@@ -119,7 +128,7 @@ class Generator(nn.Module):
             act=self.act if act == "default" else act,
             use_pixelnorm=self.pixelnorm if use_pixelnorm is None
             else use_pixelnorm,
-            eps=self.eps)
+            eps=self.eps, compute_dtype=self._compute)
 
     def _block(self, p, h, first: bool):
         h = self._conv(p["c1"], h, pad=3 if first else 1)
@@ -129,7 +138,7 @@ class Generator(nn.Module):
         """Growth-stage block with the 2x upsample fused into c1."""
         h = equalized_conv2d_up2x(p["c1"], h, wscale=self.wscale,
                                   act=self.act, use_pixelnorm=self.pixelnorm,
-                                  eps=self.eps)
+                                  eps=self.eps, compute_dtype=self._compute)
         return self._conv(p["c2"], h, pad=1)
 
     def _torgb(self, p, h):
@@ -139,8 +148,8 @@ class Generator(nn.Module):
     def _pallas_tail_start(self, depth: int):
         """First growth stage of the NHCW tail, or None: the start of the
         longest run of stages, ending at ``depth - 1``, that the envelope
-        admits (``pggan_tpu/models/generator.py:154-179``)."""
-        if not self.pallas_tail or depth < 1:
+        admits (``pggan_tpu/models/generator.py:154-179``). f32 only."""
+        if not self.pallas_tail or self._compute is not None or depth < 1:
             return None
         start = None
         for i in reversed(range(depth)):
@@ -186,11 +195,14 @@ class Generator(nn.Module):
         return ult.permute(0, 1, 3, 2)  # NHCW -> NHWC
 
     def forward(self, z: torch.Tensor, depth: int, alpha,
-                fade: bool = True) -> torch.Tensor:
+                fade: bool = True, *, kernels: bool = True) -> torch.Tensor:
         """Images at ``4 * 2**depth`` px, NHWC float32, from latents
         ``z`` (N, latent_size). ``alpha`` weighs the new stage in the fade
         blend; ``fade=False`` serves the stable graph, which equals the fade
-        graph at alpha 1 (reference network.py:118-139)."""
+        graph at alpha 1 (reference network.py:118-139). ``kernels=False``
+        (set by the export only, on a G without the tail) runs the NCHW
+        upsample on its plain version: the forward is then PyTorch
+        operators only, which ``torch.export`` can trace."""
         if not (0 <= depth <= self.max_depth):
             raise ValueError(f"depth {depth} out of range "
                              f"[0, {self.max_depth}]")
@@ -200,14 +212,21 @@ class Generator(nn.Module):
             h = pixelnorm(h, self.eps)
         h = self._block(self.block0, h, first=True)
         if depth == 0:
-            return self._torgb(self.block0, h).permute(0, 2, 3, 1)
+            return self._torgb(self.block0, h).float().permute(0, 2, 3, 1)
         tail = self._pallas_tail_start(depth)
         if tail is not None:
+            if not kernels:
+                raise ValueError("kernels=False needs pallas_tail=False: "
+                                 "the tail runs on the kernels")
             for i in range(tail):
                 h = (self._block_up(self.blocks[i], h) if self.fused_scale
                      else self._block(self.blocks[i], upsample_nearest_2x(h),
                                       first=False))
             return self._pallas_tail(h, depth, alpha, fade, tail)
+
+        def up(v):
+            return upsample_nearest_2x(v, kernel=kernels)
+
         prev_p = self.blocks[depth - 2] if depth > 1 else self.block0
         if self.fused_scale:
             for i in range(depth - 1):
@@ -217,17 +236,17 @@ class Generator(nn.Module):
             if fade:
                 # toRGB (1x1) commutes with nearest upsample: apply at low
                 # res, then upsample (reference order network.py:129-135)
-                prev_rgb = upsample_nearest_2x(self._torgb(prev_p, h))
+                prev_rgb = up(self._torgb(prev_p, h))
         else:
             for i in range(depth - 1):
-                h = self._block(self.blocks[i], upsample_nearest_2x(h),
-                                first=False)
-            h = upsample_nearest_2x(h)
+                h = self._block(self.blocks[i], up(h), first=False)
+            h = up(h)
             ult = self._torgb(self.blocks[depth - 1],
                               self._block(self.blocks[depth - 1], h,
                                           first=False))
             if fade:
                 prev_rgb = self._torgb(prev_p, h)
+        ult = ult.float()  # images and the blend stay f32
         if fade:
-            ult = prev_rgb * (1.0 - alpha) + ult * alpha
+            ult = prev_rgb.float() * (1.0 - alpha) + ult * alpha
         return ult.permute(0, 2, 3, 1)  # NCHW -> NHWC

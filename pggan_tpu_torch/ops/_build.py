@@ -45,10 +45,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # x, y, N, H, C, W, stream
+    # x, y, N, H, C, W, stream (f32, and the bf16 twins)
     "pggan_upsample2x": (_P, _P, _I, _I, _I, _I, _P),
-    # x, y, N, H, C, W, stream
+    "pggan_upsample2x_bf16": (_P, _P, _I, _I, _I, _I, _P),
     "pggan_avgpool2x": (_P, _P, _I, _I, _I, _I, _P),
+    "pggan_avgpool2x_bf16": (_P, _P, _I, _I, _I, _I, _P),
     # x, w, b, y, r, ws, N, H, C, W, K, KT, epi, slope, eps, stream
     "pggan_conv3x3": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       _F, _F, _P),
@@ -155,14 +156,24 @@ def library() -> ctypes.CDLL:
 
 def _demangle(symbol: str) -> str:
     """``_ZN<ns><name>I<args>E...`` -> ``name<args>`` for the kernels here
-    (namespaces, integer and bool template arguments)."""
+    (namespaces; integer, bool, float and named types as template
+    arguments)."""
     rest, names = symbol[3:], []
     while rest[:1].isdigit():
         n = re.match(r"\d+", rest).group()
         names.append(rest[len(n):len(n) + int(n)])
         rest = rest[len(n) + int(n):]
-    targs = re.match(r"I((?:L[ib]\d+E)+)E", rest)
-    args = re.findall(r"L[ib](\d+)E", targs.group(1)) if targs else []
+    args = []
+    if rest.startswith("I"):
+        rest = rest[1:]
+        while m := re.match(r"L[ib](\d+)E|f|(\d+)", rest):
+            if m.group(2):  # a named type: its length, then its name
+                end = m.end() + int(m.group(2))
+                args.append(rest[m.end():end])
+            else:
+                end = m.end()
+                args.append(m.group(1) or "float")
+            rest = rest[end:]
     return (names[-1] if names else symbol) + (
         f"<{','.join(args)}>" if args else "")
 
@@ -221,14 +232,16 @@ def launch(name: str, fn: str, *args) -> None:
     (CAPTURED if _capturing() else LAUNCHES)[name] += 1
 
 
-def check_kernel_inputs(*tensors: torch.Tensor) -> None:
-    """What every kernel takes: contiguous, all on one device, float32 (the
-    CUDA route) or float32 / float64 (the CPU route, so that ``gradcheck``
-    can hold the backward rules in float64). The wrappers check it on the
-    CPU route too, so CPU runs hold callers to the kernels' contract."""
+def check_kernel_inputs(*tensors: torch.Tensor, bf16: bool = False) -> None:
+    """What a kernel takes: contiguous, all on one device, of one dtype:
+    float32 (the CUDA route) or float32 / float64 (the CPU route, so that
+    ``gradcheck`` can hold the backward rules in float64), and bfloat16 on
+    both routes for the kernels built for it (``bf16=True``: the upsample
+    and the pool). The wrappers check it on the CPU route too, so CPU runs
+    hold callers to the kernels' contract."""
     dev = tensors[0].device
     dtypes = ((torch.float32, torch.float64) if dev.type == "cpu"
-              else (torch.float32,))
+              else (torch.float32,)) + ((torch.bfloat16,) if bf16 else ())
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"tensors on {t.device} and {dev}")

@@ -9,6 +9,14 @@ channel axis. The low-resolution stages run these as ``F.conv2d`` /
 as Pallas kernels. Weights are stored OIHW (PyTorch's layout) and the dense
 weight (out, in) as ``F.linear`` takes it; ``pggan_tpu_torch.checkpoint``
 converts to and from the JAX package's HWIO and (in, out).
+
+Mixed precision follows the JAX package: with ``compute_dtype`` set
+(``torch.bfloat16``), a conv scales its float32 weight (wscale, the 4x4
+superposition, the pool-in spread) in float32 first, then casts weight and
+input to bf16; the conv emits bf16, and the epilogue adds the bias,
+applies the activation and the pixelnorm in float32 and casts back. The
+minibatch stddev takes its statistic in float32 and casts its channel to
+the input's dtype. Parameters and the dense layer stay float32.
 """
 
 from __future__ import annotations
@@ -60,10 +68,11 @@ def minibatch_stddev(x: torch.Tensor, eps: float = 1e-8,
     n = x.shape[0]
     if n % groups:
         raise ValueError(f"batch {n} does not split into {groups} groups")
-    xg = x.reshape(groups, -1)
+    # the statistic in f32 (or f64, never bf16)
+    xg = (x.float() if x.dtype == torch.bfloat16 else x).reshape(groups, -1)
     mean = xg.mean(dim=1, keepdim=True)
     s = torch.sqrt(torch.mean(torch.square(xg - mean), dim=1) + eps)
-    tile = s.repeat_interleave(n // groups).reshape(n, 1, 1, 1)
+    tile = s.repeat_interleave(n // groups).reshape(n, 1, 1, 1).to(x.dtype)
     tile = tile.expand(n, 1, x.shape[2], x.shape[3])
     return torch.cat([x, tile], dim=1)
 
@@ -72,10 +81,14 @@ def minibatch_stddev(x: torch.Tensor, eps: float = 1e-8,
 # channels-last layout when its input's strides fit both layouts, as a
 # one-channel (N, 1, H, W) image's do; ``contiguous`` is free otherwise.
 
-def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
+def upsample_nearest_2x(x: torch.Tensor, kernel: bool = True) -> torch.Tensor:
     """Nearest-neighbour 2x spatial upsample, NCHW (reference
-    network.py:127)."""
-    from pggan_tpu_torch.ops.resample import upsample_2x
+    network.py:127), on the upsample kernel for a CUDA tensor.
+    ``kernel=False`` takes the plain version on every device: the export
+    sets it, since a kernel reached through ctypes cannot be traced."""
+    from pggan_tpu_torch.ops.resample import upsample_2x, upsample2x_plain
+    if not kernel:
+        return upsample2x_plain(x, 2, 3)
     return upsample_2x(x.contiguous(), h_axis=2, w_axis=3)
 
 
@@ -122,7 +135,31 @@ def equalized_dense(params, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, params["w"], params["b"])
 
 
-def _epilogue(y, b, act, use_pixelnorm, eps):
+def _conv_in(compute_dtype, conv, x, w, **kw):
+    """``conv(x, w, **kw)``, in float32 (``compute_dtype`` None) or with
+    both operands cast to ``compute_dtype`` (after the float32 weight
+    scaling): a bf16 conv, which sums in float32 and rounds its output once
+    to bf16. On the card that is cuDNN's bf16 conv (held against the CPU
+    route call by call in ``chip_smoke.py`` phase 14). On the CPU it is the
+    same arithmetic written out: the bf16 operands' values convolved in
+    float32, the output rounded to bf16. torch 2.13's CPU bf16 conv has a
+    wrong second derivative at some shapes (the weight gradient of its
+    input gradient, at batch 8 with 8 or more channels), and the gradient
+    penalty takes exactly that."""
+    if compute_dtype is None:
+        return conv(x, w, **kw)
+    x, w = x.to(compute_dtype), w.to(compute_dtype)
+    if x.device.type == "cpu":
+        return conv(x.float(), w.float(), **kw).to(compute_dtype)
+    return conv(x, w, **kw)
+
+
+def _epilogue(y, b, act, use_pixelnorm, eps, compute_dtype=None):
+    """Bias, activation and pixelnorm in float32; the result in
+    ``compute_dtype`` when it is set (``_conv_epilogue`` of the JAX
+    package)."""
+    if compute_dtype is not None:
+        y = y.float()
     y = y + b[None, :, None, None]
     if act == "lrelu":
         y = leaky_relu(y, 0.2)
@@ -132,21 +169,21 @@ def _epilogue(y, b, act, use_pixelnorm, eps):
         raise ValueError(f"unknown act: {act!r}")
     if use_pixelnorm:
         y = pixelnorm(y, eps)
-    return y
+    return y if compute_dtype is None else y.to(compute_dtype)
 
 
 def equalized_conv2d(params, x: torch.Tensor, *, padding: int = 1,
                      wscale: bool = True, act: str | None = "lrelu",
-                     use_pixelnorm: bool = True,
-                     eps: float = 1e-8) -> torch.Tensor:
+                     use_pixelnorm: bool = True, eps: float = 1e-8,
+                     compute_dtype=None) -> torch.Tensor:
     """The reference's ``PGConv2d`` forward (network.py:32-41), NCHW:
     conv(x * c) -> activation -> pixelnorm, with ``c`` folded into the
     weight. ``params`` holds ``w`` (OIHW) and ``b``."""
     w = params["w"]
     if wscale:
         w = w * he_constant(w.shape[1] * w.shape[2] * w.shape[3])
-    y = F.conv2d(x, w, padding=padding)
-    return _epilogue(y, params["b"], act, use_pixelnorm, eps)
+    y = _conv_in(compute_dtype, F.conv2d, x, w, padding=padding)
+    return _epilogue(y, params["b"], act, use_pixelnorm, eps, compute_dtype)
 
 
 def _superpose_up(w3: torch.Tensor) -> torch.Tensor:
@@ -162,8 +199,8 @@ def _superpose_up(w3: torch.Tensor) -> torch.Tensor:
 
 def equalized_conv2d_up2x(params, x: torch.Tensor, *, wscale: bool = True,
                           act: str | None = "lrelu",
-                          use_pixelnorm: bool = True,
-                          eps: float = 1e-8) -> torch.Tensor:
+                          use_pixelnorm: bool = True, eps: float = 1e-8,
+                          compute_dtype=None) -> torch.Tensor:
     """Fused ``nearest_up2x -> 3x3 equalized conv -> act -> pixelnorm``,
     NCHW in, (N, K, 2H, 2W) out; equal to
     ``equalized_conv2d(upsample_nearest_2x(x))`` up to float reassociation.
@@ -178,14 +215,15 @@ def equalized_conv2d_up2x(params, x: torch.Tensor, *, wscale: bool = True,
     if wscale:
         w = w * he_constant(9 * w.shape[1])
     k = _superpose_up(w).flip(2, 3).transpose(0, 1)  # (C, K, 4, 4)
-    y = F.conv_transpose2d(x, k, stride=2, padding=1)
-    return _epilogue(y, params["b"], act, use_pixelnorm, eps)
+    y = _conv_in(compute_dtype, F.conv_transpose2d, x, k, stride=2,
+                 padding=1)
+    return _epilogue(y, params["b"], act, use_pixelnorm, eps, compute_dtype)
 
 
 def equalized_conv2d_pool_in(params, x: torch.Tensor, *, wscale: bool = True,
                              act: str | None = "lrelu",
-                             use_pixelnorm: bool = False,
-                             eps: float = 1e-8) -> torch.Tensor:
+                             use_pixelnorm: bool = False, eps: float = 1e-8,
+                             compute_dtype=None) -> torch.Tensor:
     """Fused ``2x2 avg-pool -> 1x1 equalized conv``, NCHW: a stride-2 2x2
     conv with the 1x1 weight spread at weight/4, so the pooled input is
     never made (the D fade path ``fromRGB(avg_pool2d(x))``, reference
@@ -195,5 +233,5 @@ def equalized_conv2d_pool_in(params, x: torch.Tensor, *, wscale: bool = True,
     if wscale:
         w = w * he_constant(w.shape[1])
     k = (w * 0.25).expand(-1, -1, 2, 2).contiguous()
-    y = F.conv2d(x, k, stride=2)
-    return _epilogue(y, params["b"], act, use_pixelnorm, eps)
+    y = _conv_in(compute_dtype, F.conv2d, x, k, stride=2)
+    return _epilogue(y, params["b"], act, use_pixelnorm, eps, compute_dtype)

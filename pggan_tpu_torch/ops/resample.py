@@ -15,6 +15,12 @@ writes one, with wide loads and stores on neighbouring addresses. Neither
 rounds differently from its plain version: the upsample copies, the pool
 sums in the same fixed order.
 
+Both take float32 and bfloat16 (the port's bf16 models, whose NCHW pools
+and G's fade upsample run here); a bf16 launch counts under its own name,
+``upsample2x_bf16`` or ``avgpool2x_bf16``. The bf16 pool adds as the JAX
+package's bf16 ``reduce_window`` does on the CPU: over the window in row
+order, each add rounded to bf16, then times 0.25 (``avgpool2x_plain``).
+
 The backward of each Function calls the other one, as the JAX primitives'
 transposes bind each other (``resample.py:106-113``):
 ``up^T = 4 * pool`` and ``pool^T = 0.25 * up``. Every derivative order
@@ -37,21 +43,34 @@ def upsample2x_plain(x: torch.Tensor, h_axis: int, w_axis: int) -> torch.Tensor:
 
 
 def avgpool2x_plain(x: torch.Tensor, h_axis: int, w_axis: int) -> torch.Tensor:
-    """The plain PyTorch version, in the kernels' sum order:
-    ``0.25 * ((x[2i, 2j] + x[2i+1, 2j]) + (x[2i, 2j+1] + x[2i+1, 2j+1]))``."""
+    """The plain PyTorch version, in the kernel's sum order: in float32 and
+    float64 ``0.25 * ((x[2i, 2j] + x[2i+1, 2j]) + (x[2i, 2j+1] +
+    x[2i+1, 2j+1]))``; in bfloat16 ``0.25 * (((x[2i, 2j] + x[2i, 2j+1]) +
+    x[2i+1, 2j]) + x[2i+1, 2j+1])``, each add in float32 and rounded to
+    bf16, as the JAX package's bf16 pool (``reduce_window``) adds on the
+    CPU. Rounding once would be within one bf16 ulp of it, but those ulps,
+    passed on through the convs, put a bf16 D outside the quarter bar of
+    ``tests/test_torch_port_bf16.py`` against JAX's bf16 D."""
     def half(t, axis, start):
         index = [slice(None)] * t.ndim
         index[axis] = slice(start, None, 2)
         return t[tuple(index)]
 
-    s = half(x, h_axis, 0) + half(x, h_axis, 1)
+    top, bottom = half(x, h_axis, 0), half(x, h_axis, 1)
+    if x.dtype == torch.bfloat16:
+        def add(a, b):  # in f32, rounded to bf16
+            return (a.float() + b.float()).to(torch.bfloat16)
+        s = add(add(add(half(top, w_axis, 0), half(top, w_axis, 1)),
+                    half(bottom, w_axis, 0)), half(bottom, w_axis, 1))
+        return (s.float() * 0.25).to(torch.bfloat16)
+    s = top + bottom
     return (half(s, w_axis, 0) + half(s, w_axis, 1)) * 0.25
 
 
 def _view_dims(x: torch.Tensor, h_axis: int, w_axis: int):
     """Check the axes and return them normalised, with the kernels'
     (N', H, C', W) view of ``x``."""
-    _build.check_kernel_inputs(x)
+    _build.check_kernel_inputs(x, bf16=True)
     h_axis, w_axis = h_axis % x.ndim, w_axis % x.ndim
     if w_axis != x.ndim - 1 or h_axis >= w_axis:
         raise ValueError(f"the resample kernels take W as the last axis and "
@@ -70,6 +89,13 @@ def _scaled(shape, h_axis, w_axis, up: bool):
     return out
 
 
+def _kernel(name: str, x: torch.Tensor):
+    """The count name and C entry point of kernel ``name`` for x's dtype."""
+    if x.dtype == torch.bfloat16:
+        return f"{name}_bf16", f"pggan_{name}_bf16"
+    return name, f"pggan_{name}"
+
+
 def _upsample(x, h_axis, w_axis):
     h_axis, w_axis, (n, h, c, w) = _view_dims(x, h_axis, w_axis)
     if _build.use_plain(x):
@@ -77,7 +103,7 @@ def _upsample(x, h_axis, w_axis):
     y = torch.empty(_scaled(x.shape, h_axis, w_axis, True), dtype=x.dtype,
                     device=x.device)
     if y.numel():
-        _build.launch("upsample2x", "pggan_upsample2x", x.data_ptr(),
+        _build.launch(*_kernel("upsample2x", x), x.data_ptr(),
                       y.data_ptr(), n, h, c, w)
     return y
 
@@ -92,7 +118,7 @@ def _pool(x, h_axis, w_axis):
     y = torch.empty(_scaled(x.shape, h_axis, w_axis, False), dtype=x.dtype,
                     device=x.device)
     if y.numel():
-        _build.launch("avgpool2x", "pggan_avgpool2x", x.data_ptr(),
+        _build.launch(*_kernel("avgpool2x", x), x.data_ptr(),
                       y.data_ptr(), n, h, c, w)
     return y
 
@@ -105,7 +131,9 @@ class _Upsample2x(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        # <g, up(x)> = <4 * pool(g), x>
+        # <g, up(x)> = <4 * pool(g), x>; a Python scalar keeps g's dtype
+        # (bf16 stays bf16, as JAX's weak-typed 4.0), and scaling by a
+        # power of two is exact
         return 4.0 * avg_pool_2x(g.contiguous(), *ctx.axes), None, None
 
 

@@ -151,10 +151,14 @@ def test_stat_groups_equals_separate_calls():
 
 
 def test_depth_out_of_range_and_bf16_raise():
+    """A depth out of range raises; bf16 builds (ported since the bf16
+    slice: tests/test_torch_port_bf16.py) and an unknown dtype raises."""
     with pytest.raises(ValueError):
         _port()(torch.zeros(1, 256, 256, 3), 6, 1.0)
-    with pytest.raises(NotImplementedError):
-        Discriminator(SHAPE, **SMALL, compute_dtype="bfloat16")
+    assert Discriminator(SHAPE, **SMALL, compute_dtype="bfloat16")._pallas_span(
+        5) == 0
+    with pytest.raises(ValueError, match="compute_dtype"):
+        Discriminator(SHAPE, **SMALL, compute_dtype="float16")
 
 
 # -- D's share of the primitives -------------------------------------------------

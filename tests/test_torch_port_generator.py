@@ -152,8 +152,12 @@ def test_generator_variants_match_jax_at_low_depth(leakyrelu, pixelnorm):
 # -- (h) contracts -----------------------------------------------------------
 
 def test_bfloat16_raises():
-    with pytest.raises(NotImplementedError):
-        Generator(SHAPE, **SMALL, compute_dtype="bfloat16")
+    """bf16 builds (ported since the bf16 slice, without the tail:
+    tests/test_torch_port_bf16.py); an unknown compute dtype raises."""
+    assert Generator(SHAPE, **SMALL,
+                     compute_dtype="bfloat16")._pallas_tail_start(5) is None
+    with pytest.raises(ValueError, match="compute_dtype"):
+        Generator(SHAPE, **SMALL, compute_dtype="float16")
 
 
 def test_depth_out_of_range_raises():

@@ -39,6 +39,10 @@ _SPEC.loader.exec_module(smoke)
     # reads 1 and writes 4
     ("avgpool2x", ((6, 1024, 16, 1024), 1, 3), 0.0, 503.3),
     ("upsample2x", ((16, 128, 64, 128), 1, 3), 0.0, 335.5),
+    # their bf16 modes move two bytes an element: the bf16 D's NCHW pool at
+    # 1024 px, and G's fade upsample
+    ("avgpool2x_bf16", ((6, 16, 1024, 1024), 2, 3), 0.0, 251.66),
+    ("upsample2x_bf16", ((3, 3, 512, 512), 2, 3), 0.0, 23.59),
     ("conv3x3_chain_pn",
      ((16, 256, 64, 256), (3, 3, 64, 32), (32,), (3, 3, 32, 32), (32,)),
      57.98, 402.8),
@@ -75,6 +79,27 @@ def test_achieved_rate_of_the_upsample(shape, ms, gb_s):
         gb_s, rel=1e-4)
     bound_ms = smoke.bounds(*smoke.work("upsample2x", sig))[0]
     assert bound_ms / ms == pytest.approx(gb_s / 3350.0, rel=1e-4)
+
+
+@pytest.mark.parametrize("name", ["avgpool2x", "upsample2x"])
+def test_bf16_modes_move_half_the_bytes(name):
+    sig = ((3, 8, 64, 32), 2, 3)
+    assert smoke.element_bytes(name) == 4
+    assert smoke.element_bytes(name + "_bf16") == 2
+    assert 2 * smoke.work(name + "_bf16", sig)[1] == smoke.work(name, sig)[1]
+    assert smoke.work(name + "_bf16", sig)[0] == 0
+
+
+def test_bf16_library_calls_take_bf16():
+    x = _rand(2, 6, 3, 8).to(torch.bfloat16)
+    for name in ("avgpool2x_bf16", "upsample2x_bf16"):
+        y = smoke.library_call(torch, name, (x, 1, 3))()
+        assert y.dtype == torch.bfloat16
+        want = smoke.plain_versions()[name](x, 1, 3)
+        n, h, c, w = want.shape  # NHCW
+        torch.testing.assert_close(y.reshape(n, c, h, w).float(),
+                                   want.transpose(1, 2).float(), rtol=1e-2,
+                                   atol=1e-2)
 
 
 def _rand(*shape, seed=0):
