@@ -24,10 +24,19 @@ snapshot with ``pggan_tpu_torch.cli.eval`` (SWD and MS-SSIM held against
 the CPU). Then bf16 mixed precision: a bf16 serve in turns with the f32
 ones, the bf16 depth-8 step eager and replayed (profiled), a depth-6 bf16
 step against the CPU's bf16 route, a bf16 progressive run through the
-train CLI; and last the export CLI on the f32 and bf16 depth-8 snapshots,
-one artifact run by a process that imports neither package.
+train CLI; the export CLI on the f32 and bf16 depth-8 snapshots, one
+artifact run by a process that imports neither package. Last, data
+parallelism on the one card (phases A-D): the graphed depth-8 step under
+a one-rank NCCL process group (its replay against a group-less step, the
+NCCL kernels in the replay's profile), two gloo ranks sharing the card
+against one process's global-batch step, the train CLI under ``torchrun
+--nproc_per_node 1`` with a resume, and ``sample_images`` over two
+replicas of G on the card against the one-device serve.
 
     python3 chip_smoke.py
+
+Phases B and C start this script again as their ranks
+(``--gloo-rank``, ``--cli-rank``).
 
 Run it from the root of the repository. It exits nonzero without a CUDA
 card, and its last line is ``{"ok": true, "device": {...}}`` only when
@@ -42,6 +51,7 @@ import json
 import math
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -1049,11 +1059,14 @@ def twin_updates(torch, state, reals, G, D, graphed=None):
 def update_errors(torch, before, got, want) -> dict:
     """A step's parameter updates (``got`` - ``before``) against another's
     (``want`` - ``before``), tensor by tensor: the largest |difference| /
-    |want's update| in the 2-norm and at the largest element, and whether
-    the parameters agree bit for bit. Every tensor the second step moved
-    must have moved in the first, and no other."""
+    |want's update| in the 2-norm (and the tensor's index and size) and at
+    the largest element, the same over all tensors as one vector, and
+    whether the parameters agree bit for bit. Every tensor the second step
+    moved must have moved in the first, and no other."""
     ratios, worst = [], 0.0
     bitwise = True
+    diff2 = ref2 = 0.0
+    where = None
     for p0, p, q in zip(before, got, want):
         dp, dq = p.detach() - p0, q.detach() - p0
         bitwise &= torch.equal(p, q)
@@ -1064,12 +1077,18 @@ def update_errors(torch, before, got, want) -> dict:
                                      "step left")
             continue
         ratios.append(float((dp - dq).norm()) / ref)
+        if ratios[-1] == max(ratios):
+            where = (len(ratios) - 1, dq.numel())
         worst = max(worst, float((dp - dq).abs().max() / dq.abs().max()))
+        diff2 += float((dp - dq).norm()) ** 2
+        ref2 += ref ** 2
     if not ratios:
         raise AssertionError("the eager step moved no parameter")
     return {"params_bitwise": bitwise, "tensors_moved": len(ratios),
             "update_err_over_norm": max(ratios),
-            "update_err_over_max": worst}
+            "worst_tensor_index_and_size": where,
+            "update_err_over_max": worst,
+            "update_err_over_total_norm": math.sqrt(diff2 / ref2)}
 
 
 def step_against_cpu(torch, device="cuda"):
@@ -1345,6 +1364,8 @@ def compare_state(a, b) -> bool:
     if isinstance(a, dict):
         return a.keys() == b.keys() and all(compare_state(a[k], b[k])
                                             for k in a)
+    if isinstance(a, list):  # each rank's generator state
+        return len(a) == len(b) and all(map(compare_state, a, b))
     if a is None or b is None:
         return a is b
     if isinstance(a, int):
@@ -2550,6 +2571,606 @@ def export_phase(torch, f32_snapshot, bf16_snapshot, root):
     return out
 
 
+# Data parallelism (phases A-D), at the paper configuration: a process
+# group of one NCCL rank around the graphed depth-8 step; two gloo ranks
+# on the one card around an eager depth-6 step of the 1024 config's
+# depth-6 batch (14, 7 a rank, no rounding at world size 2); the train CLI
+# under torchrun on a short schedule (depth 0-3) with a resume; sampling
+# over two replicas of G on the one card. Two NCCL ranks cannot share one
+# card, so a run across cards is not made here.
+DP_REPLAYS = 6  # replays timed per graph and route in phase A
+GLOO_DEPTH, GLOO_BATCH, GLOO_WORLD = 6, 14, 2
+GLOO_WARM = 3  # steps that give phase B's compared step an Adam history
+GLOO_KERNELS = ("conv3x3", "conv3x3_act", "conv3x3_act_pn", "conv3x3_dw",
+                "avgpool2x", "upsample2x")
+DP_STOP, DP_TOTAL = 0.192, 0.336  # depth 2's fade / depth 3's end
+DP_CLI_KERNELS = ("avgpool2x", "upsample2x")  # depths 0-3: NCHW only
+DP_SAMPLES = 40  # chunks of BATCH: 16, 16 and a remainder of 8
+
+
+def nccl_phase(torch):
+    """Phase A: the paper configuration's depth-8 step at TRAIN_BATCH under
+    a one-rank NCCL process group (a ``FileStore`` in a temp dir), graphed:
+    per graph (fade, stable) the eager first call, the capture, then
+    DP_REPLAYS replays timed in turns with a group-less builder's; one
+    replay profiled (the NCCL kernels in the graph); then, with cuDNN's
+    deterministic algorithms, a group replay against a group-less eager
+    step from the same state (``twin_updates``: the losses and the whole
+    update within phase 5's bars)."""
+    import torch.distributed as dist
+    from pggan_tpu_torch.ops import _build
+    from pggan_tpu_torch.parallel import Group
+    from pggan_tpu_torch.training import TrainStepBuilder, init_state
+    from pggan_tpu_torch.utils.profiling import (capture, device_profile,
+                                                 group_of, kernel_rows)
+    median = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+        rank=0, world_size=1)
+    try:
+        group = Group.current(torch.device("cuda", 0))
+        routes, launches, out = {}, {}, {"backend": group.backend,
+                                         "world_size": group.world_size}
+        for route in ("group", "plain"):
+            G, D = paper_models(torch, "cuda")
+            grp = group if route == "group" else None
+            state = init_state(G, D, seed=SEED, group=grp)
+            builder = TrainStepBuilder(G, D, group=grp)
+            routes[route] = (state, builder, G, D)
+            prep = builder.prep_fn()
+            u8 = uint8_reals(torch, builder, TRAIN_DEPTH, SEED).cuda()
+            torch.cuda.synchronize()
+            _build.LAUNCHES.clear()
+            for fade in (True, False):  # eager, then capture + a replay
+                alpha = 0.5 if fade else 1.0
+                step = builder.step_fn(TRAIN_DEPTH, TRAIN_BATCH, fade)
+                for _ in range(2):
+                    metrics = step(state, prep(u8, alpha), alpha, LR, LR)
+                if not all(math.isfinite(float(v))
+                           for v in metrics.values()):
+                    raise AssertionError(f"{route}: metrics {metrics}")
+            torch.cuda.synchronize()
+            launches[route] = dict(_build.LAUNCHES)
+        for fade in (True, False):
+            alpha = 0.5 if fade else 1.0
+            graph = "fade" if fade else "stable"
+            reals = prep(u8, alpha)
+            times = {"group": [], "plain": []}
+            for i in range(DP_REPLAYS):
+                for route in (("plain", "group") if i % 2 == 0
+                              else ("group", "plain")):
+                    state, builder = routes[route][:2]
+                    step = builder.step_fn(TRAIN_DEPTH, TRAIN_BATCH, fade)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    step(state, reals, alpha, LR, LR)
+                    torch.cuda.synchronize()
+                    times[route].append((time.perf_counter() - t0) * 1e3)
+            for route, v in times.items():
+                out[f"{route}_replay_ms_{graph}"] = median(v)
+                out[f"{route}_replay_ms_all_{graph}"] = v
+            out[f"group_cost_{graph}"] = (median(times["group"])
+                                          / median(times["plain"]) - 1.0)
+            log(f"  replayed {graph} step: {median(times['group']):.2f} ms "
+                f"under the group, {median(times['plain']):.2f} without "
+                f"({out[f'group_cost_{graph}']:+.2%}; in turns, "
+                f"{DP_REPLAYS} each)")
+        state, builder = routes["group"][:2]
+        step = builder.step_fn(TRAIN_DEPTH, TRAIN_BATCH, True)
+        reals = prep(u8, 0.5)
+        prof, wall_ms = capture(lambda: step(state, reals, 0.5, LR, LR))
+        profile = device_profile(prof, wall_ms, 1, "one group replay, fade",
+                                 "step", log=log)
+        # at one rank NCCL runs an in-place sum (the statistic's, the
+        # metrics') as nothing, and the gradients' averages as its
+        # oneRankReduce kernel: those must be in the replay
+        nccl = {n: ms for n, ms in profile["ms_per_step_by_name"].items()
+                if group_of(n) == "NCCL collectives"}
+        n_nccl = sum(r["count"] for r in kernel_rows(prof)
+                     if r["group"] == "NCCL collectives")
+        if n_nccl < 2:
+            raise AssertionError(f"{n_nccl} NCCL kernels in the profile of a "
+                                 f"replay: the gradients' all-reduces are not "
+                                 f"in the graph")
+        log(f"  NCCL kernels in the replay: {n_nccl}, {nccl} ms")
+        out["nccl_kernels_per_replay"] = n_nccl
+        out["profile_replay_fade"] = {
+            k: v for k, v in profile.items() if k != "ms_per_step_by_name"}
+        out["nccl_kernels_ms"] = nccl
+        replayed = collections.Counter()
+        for key in builder.graphed_keys():
+            s = builder.step_fn(*key)
+            for name, n in s.captured.items():
+                replayed[name] += n * s.replays
+        # the bar: a replay under the group against a group-less eager
+        # step from the same state, cuDNN deterministic in both
+        G, D = routes["group"][2:]
+        rreals = prep(uint8_reals(torch, builder, TRAIN_DEPTH,
+                                  SEED + 20).cuda(), REPLAY_ALPHA)
+        del routes, builder, step
+        torch.cuda.empty_cache()
+        torch.backends.cudnn.deterministic = True
+        try:
+            graphed = TrainStepBuilder(G, D, group=group).step_fn(
+                TRAIN_DEPTH, TRAIN_BATCH, True)
+            for _ in range(2):
+                graphed(state, prep(u8, 0.5), 0.5, LR, LR)
+            replay = twin_updates(torch, state, rreals, G, D, graphed)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        # the whole update is held: the group's statistic is summed and
+        # its D scores reals and fakes apart, so unlike phase 5's replay
+        # the two steps round differently, and Adam's normalisation takes
+        # a tensor's small elements up to its own scale (phase B)
+        if replay["loss_rel_err"] > STEP_LOSS_RTOL or \
+                replay["update_err_over_total_norm"] > UPDATE_TOL:
+            raise AssertionError(f"group replay against the group-less "
+                                 f"eager step: {replay}")
+        log(f"  a replay under the group against a group-less eager step "
+            f"from the same state (cuDNN deterministic): losses within "
+            f"{replay['loss_rel_err']:.2e} (bar {STEP_LOSS_RTOL}); the "
+            f"update within {replay['update_err_over_total_norm']:.2e} of "
+            f"its norm (bar {UPDATE_TOL}), of {replay['tensors_moved']} "
+            f"tensors the worst within {replay['update_err_over_norm']:.2e}"
+            f" of its own")
+        out["group_replay_vs_plain_eager"] = replay
+        del graphed, state, G, D
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name in TRAIN_KERNELS:
+        if not launches["group"].get(name) or not replayed.get(name):
+            raise AssertionError(f"{name} was never launched under the NCCL "
+                                 f"group, or never replayed")
+    out["launches_eager"] = launches["group"]
+    out["kernels_run_in_replays"] = dict(replayed)
+    return out, launches["group"], replayed
+
+
+def gloo_inputs(repeats, latent_size):
+    """Phase B's global reals (uint8, NHWC) and draws, from SEED."""
+    import numpy as np
+    rng = np.random.RandomState(SEED + 30 + repeats)
+    res = 4 * 2 ** GLOO_DEPTH
+    u8 = rng.randint(0, 256, (repeats, GLOO_BATCH, res, res, 3),
+                     dtype=np.uint8)
+    draws = []
+    for _ in range(repeats):
+        draws.append(("normal", rng.randn(GLOO_BATCH, latent_size)
+                      .astype(np.float32)))
+        draws.append(("uniform", rng.uniform(size=GLOO_BATCH)
+                      .astype(np.float32)))
+    draws.append(("normal", rng.randn(GLOO_BATCH, latent_size)
+                  .astype(np.float32)))
+    return u8, draws
+
+
+def replayed_noise(torch, draws, device, group=None):
+    """A step's ``noise`` hook replaying ``draws`` (global arrays; this
+    rank's slice under ``group``) on ``device``."""
+    from pggan_tpu_torch.parallel import shard_batch
+    it = iter(draws)
+
+    def noise(kind, shape):
+        want, value = next(it)
+        if group is not None:
+            value = shard_batch(value, group)
+        if (want, tuple(value.shape)) != (kind, tuple(shape)):
+            raise AssertionError(f"draw {kind} {shape}, have {want} "
+                                 f"{value.shape}")
+        return torch.from_numpy(value).to(device)
+    return noise
+
+
+def gloo_start(torch, path):
+    """Phase B's common start: SEED's paper models after GLOO_WARM eager
+    depth-6 steps on their own draws, saved as a training state, so that
+    the compared step's Adam has a history (at the first step an update is
+    lr * sign(g), and a gradient at the noise level flips it)."""
+    from pggan_tpu_torch import checkpoint
+    from pggan_tpu_torch.training import TrainStepBuilder, init_state
+    G, D = paper_models(torch, "cuda")
+    state = init_state(G, D, seed=SEED + 40)
+    builder = TrainStepBuilder(G, D, cuda_graphs=False)
+    step = builder.step_fn(GLOO_DEPTH, TRAIN_BATCH, True)
+    for i in range(GLOO_WARM):
+        u8 = uint8_reals(torch, builder, GLOO_DEPTH, SEED + 50 + i)
+        step(state, builder.prep_fn()(u8.cuda(), 0.5), 0.5, LR, LR)
+    checkpoint.save_training_state(path, state, 0, GLOO_WARM)
+    del G, D, state, builder, step
+    torch.cuda.empty_cache()
+
+
+def gloo_step(torch, repeats, start, group=None, timed=2,
+              deterministic=True):
+    """One eager depth-6 fade step of the paper configuration from the
+    training state at ``start`` on phase B's inputs (this rank's shard
+    under ``group``), cuDNN deterministic unless ``deterministic`` is
+    False; then ``timed`` more steps on the state's own draws. Returns the
+    losses, the parameters before and after the first step and its
+    gradients (Adam's first moments, b1 = 0: G's and the last D
+    repeat's), all on the host, the launches of the first step and the ms
+    of the timed ones."""
+    from pggan_tpu_torch import checkpoint
+    from pggan_tpu_torch.ops import _build
+    from pggan_tpu_torch.parallel import replicate, shard_batch
+    from pggan_tpu_torch.training import TrainStepBuilder, init_state
+    G, D = paper_models(torch, "cuda")
+    state = init_state(G, D, seed=SEED, group=group)
+    checkpoint.restore_training_state(
+        state, checkpoint.load_training_state(start)[0], group)
+    if group is not None:
+        replicate(state.tensors())
+    builder = TrainStepBuilder(G, D, d_training_repeats=repeats,
+                               cuda_graphs=False, group=group)
+    u8, draws = gloo_inputs(repeats, G.latent_size)
+    reals = builder.prep_fn()(torch.from_numpy(u8).cuda(), 0.5)
+    if group is not None:
+        reals = shard_batch(reals, group, batch_dim=1).contiguous()
+    params = [*G.parameters(), *D.parameters()]
+    before = [p.detach().cpu() for p in params]
+    step = builder.step_fn(GLOO_DEPTH, reals.shape[1], True)
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        _build.LAUNCHES.clear()
+        metrics = step(state, reals, 0.5, LR, LR,
+                       noise=replayed_noise(torch, draws, "cuda", group))
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        out = {"losses": {k: float(v) for k, v in metrics.items()},
+               "before": before, "after": [p.detach().cpu() for p in params],
+               "grads": [m.cpu() for m in [*state.g_opt.mu,
+                                           *state.d_opt.mu]],
+               "launches": launches, "ms": []}
+        for _ in range(timed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, reals, 0.5, LR, LR)
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del G, D, state, builder, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def gloo_rank(work: str) -> int:
+    """One of phase B's gloo ranks (``chip_smoke.py --gloo-rank WORK``,
+    with torchrun's variables in the environment, ``LOCAL_RANK`` 0 for
+    both: they share the one card), eager."""
+    import torch
+    import torch.distributed as dist
+    from pggan_tpu_torch.parallel import initialize_distributed
+    group = initialize_distributed("cuda", backend="gloo")
+    try:
+        if (group.backend, group.world_size) != ("gloo", GLOO_WORLD):
+            raise AssertionError(f"{group}, {group.backend}")
+        start = os.path.join(work, "start.dat")
+        out = {r: gloo_step(torch, r, start, group) for r in (1, 2)}
+        torch.save(out, os.path.join(work, f"rank{group.rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def gloo_phase(torch):
+    """Phase B: two gloo ranks (spawned processes) on the one card, each
+    on its 7 of the global batch of 14, eager, ``d_training_repeats`` 1
+    and 2, the draws injected; against one process's global-batch eager
+    step on the card from the same state (``gloo_start``) and draws:
+    losses within STEP_LOSS_RTOL, both ranks' parameters bit-equal, and,
+    with one D repeat, the averaged gradients within phase 7's
+    STEP_GRAD_TOL. The updates are recorded beside the same one-process
+    step's distance from itself under cuDNN's default algorithms (and the
+    gradients of two D repeats beside the bar): Adam divides each element's
+    gradient by its own scale, and the gradient penalty's second-order
+    terms cancel, so an element far below its tensor's largest keeps the
+    absolute rounding error of the large ones and its update takes it up
+    to its own scale: two valid one-process steps differ by more than a
+    bar at 1e-3 of the update norm could hold (both recorded)."""
+    out = {"world_size": GLOO_WORLD, "depth": GLOO_DEPTH,
+           "global_batch": GLOO_BATCH, "warm_steps": GLOO_WARM}
+    with tempfile.TemporaryDirectory() as work:
+        start = os.path.join(work, "start.dat")
+        gloo_start(torch, start)
+        ref = {r: gloo_step(torch, r, start) for r in (1, 2)}
+        # the noise of the computation: the same step with cuDNN's default
+        # algorithms against its deterministic ones
+        floor = {r: update_errors(torch, ref[r]["before"],
+                                  gloo_step(torch, r, start, timed=0,
+                                            deterministic=False)["after"],
+                                  ref[r]["after"]) for r in (1, 2)}
+        here = os.path.abspath(__file__)
+        logs = [open(os.path.join(work, f"log{r}.txt"), "w")
+                for r in range(GLOO_WORLD)]
+        t0 = time.perf_counter()
+        with socket.socket() as sock:  # a free port for the TCP store
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        procs = [subprocess.Popen(
+            [sys.executable, here, "--gloo-rank", work],
+            cwd=os.path.dirname(here), stdout=logs[r],
+            stderr=subprocess.STDOUT,
+            env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(GLOO_WORLD),
+                     LOCAL_RANK="0", MASTER_ADDR="localhost",
+                     MASTER_PORT=str(port)))
+            for r in range(GLOO_WORLD)]
+        try:
+            while any(p.poll() is None for p in procs):
+                if time.perf_counter() - t0 > 600 or any(
+                        p.poll() not in (None, 0) for p in procs):
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+            for f in logs:
+                f.close()
+        out["ranks_wall_s"] = time.perf_counter() - t0
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                text = open(os.path.join(work, f"log{r}.txt")).read()
+                raise AssertionError(f"gloo rank {r} exited {p.returncode}:"
+                                     f"\n{text[-4000:]}")
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"))
+                 for r in range(GLOO_WORLD)]
+    launches = collections.Counter()
+    for repeats in (1, 2):
+        want = ref[repeats]
+        for r, got in enumerate(r_[repeats] for r_ in ranks):
+            loss_err = max(abs(got["losses"][k] - v) / max(abs(v), 1e-30)
+                           for k, v in want["losses"].items())
+            errs = update_errors(torch, want["before"], got["after"],
+                                 want["after"])
+            grad_err, failed = 0.0, []
+            for i, (g, w) in enumerate(zip(got["grads"], want["grads"])):
+                scale = float(w.abs().max())
+                grad_err = max(grad_err, float((g - w).abs().max())
+                               / max(scale, 1e-30))
+                if not torch.allclose(
+                        g, w, rtol=STEP_GRAD_TOL["rtol"],
+                        atol=STEP_GRAD_TOL["scaled_atol"] * scale):
+                    failed.append(i)
+            errs["grad_err_over_max"] = grad_err
+            # the gradients are held where each model takes one update:
+            # with two D repeats the second's gradient is taken at
+            # parameters that the first update's rounding, passed through
+            # Adam's normalisation, already moved apart (recorded)
+            if loss_err > STEP_LOSS_RTOL or (repeats == 1 and failed):
+                raise AssertionError(f"gloo rank {r}, {repeats} D repeat(s):"
+                                     f" losses {loss_err:.2e}, gradients "
+                                     f"{failed} outside {STEP_GRAD_TOL}")
+            for name in GLOO_KERNELS:
+                if not got["launches"].get(name):
+                    raise AssertionError(f"gloo rank {r}: {name} not "
+                                         f"launched")
+            launches.update(got["launches"])
+            out[f"rank{r}_repeats{repeats}"] = {
+                "loss_rel_err": loss_err, **errs, "ms_per_step": got["ms"],
+                "launches": got["launches"]}
+            log(f"  gloo rank {r}, {repeats} D repeat(s): losses within "
+                f"{loss_err:.2e}; gradients within {grad_err:.2e} of a "
+                f"tensor's largest element; updates within "
+                f"{errs['update_err_over_total_norm']:.2e} of the update's "
+                f"norm, {errs['update_err_over_norm']:.2e} of a tensor's "
+                f"(tensor {errs['worst_tensor_index_and_size']}), of the "
+                f"global-batch step (the same step with cuDNN's default "
+                f"algorithms: "
+                f"{floor[repeats]['update_err_over_total_norm']:.2e}, "
+                f"{floor[repeats]['update_err_over_norm']:.2e}); "
+                f"{', '.join(f'{t:.1f}' for t in got['ms'])} ms a step "
+                f"(one process, the global batch: "
+                f"{', '.join(f'{t:.1f}' for t in want['ms'])} ms)")
+        out[f"cudnn_default_vs_deterministic_repeats{repeats}"] = \
+            floor[repeats]
+        a, b = (r_[repeats]["after"] for r_ in ranks)
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{repeats} D repeat(s): the two ranks' "
+                                 f"parameters differ")
+        out[f"single_process_ms_repeats{repeats}"] = want["ms"]
+    log(f"  both ranks' parameters bit-equal after each step; ranks' wall "
+        f"{out['ranks_wall_s']:.1f} s (spawn and build included)")
+    return out, dict(launches)
+
+
+def dp_cli_argv(root, total_kimg, *extra):
+    """Phase C's run: phase 9's at 8 items."""
+    argv = cli_argv(root, total_kimg, *extra)
+    argv[argv.index("--SyntheticDataset.num_items") + 1] = "8"
+    return argv
+
+
+def cli_rank(outfile: str, saved: str, argv) -> int:
+    """Phase C's resumed run as a torchrun rank (``chip_smoke.py
+    --cli-rank OUT SAVED ARGV...``): ``cli.train``'s entry point, its
+    state held against the training state SAVED once built (parameters,
+    both Adams, this rank's generator and the clock, bit for bit), then
+    the kernel wrapper's launches and, per graph, its replays and the
+    kernels they ran, into OUT."""
+    from pggan_tpu_torch import checkpoint
+    from pggan_tpu_torch.cli import train as cli
+    from pggan_tpu_torch.ops import _build
+    build = cli.build
+
+    def held_build(params):
+        trainer, logger, total = build(params)
+        sd, nimg, iterations, _ = checkpoint.load_training_state(saved)
+        got = checkpoint.training_state_dict(trainer.state)
+        want = {k: sd[k] for k in got}
+        want["generator"] = sd["rank_generators"][trainer.builder.group.rank]
+        if not compare_state(got, want) or (
+                trainer.cur_nimg, trainer.iterations) != (nimg, iterations):
+            raise AssertionError("the resumed state differs from the saved "
+                                 "one")
+        return trainer, logger, total
+    cli.build = held_build
+    _build.LAUNCHES.clear()
+    trainer = cli.cli_main(argv)
+    launches = dict(_build.LAUNCHES)
+    builder = trainer.builder
+    replayed, replays = collections.Counter(), []
+    for key in builder.graphed_keys():
+        step = builder.step_fn(*key)
+        replays.append([int(key[0]), int(key[1]), bool(key[2]),
+                        step.replays])
+        for name, n in step.captured.items():
+            replayed[name] += n * step.replays
+    with open(outfile, "w") as f:
+        json.dump({"launches": launches, "replayed": dict(replayed),
+                   "replays": replays, "cur_nimg": trainer.cur_nimg,
+                   "world_size": builder.group.world_size}, f)
+    return 0
+
+
+def torchrun_phase(torch):
+    """Phase C: ``cli.train`` under ``torchrun --standalone
+    --nproc_per_node 1`` (NCCL) at the paper widths, depth 0 to 3: a run to
+    DP_STOP (``-m pggan_tpu_torch.cli.train``), then its resume to
+    DP_TOTAL through ``cli_rank`` (the resumed state held against the
+    saved one, the launches and replays). Every step after a stage's first
+    is a replay; metrics.jsonl counts the global kimg."""
+    import ast
+    import glob
+    import re
+    from pggan_tpu_torch import checkpoint
+    here = os.path.dirname(os.path.abspath(__file__))
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", "1"]
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        def launch(tag, entry, total, *extra):
+            t0 = time.perf_counter()
+            res = subprocess.run([*torchrun, *entry,
+                                  *dp_cli_argv(root, total, *extra)],
+                                 cwd=here, capture_output=True, text=True,
+                                 timeout=600)
+            out[f"{tag}_s"] = time.perf_counter() - t0
+            if res.returncode != 0:
+                log(res.stdout[-3000:] + res.stderr[-4000:])
+                raise AssertionError(f"torchrun {tag} exited "
+                                     f"{res.returncode}")
+            if "Data-parallel over 1 rank(s) (nccl)" not in res.stdout:
+                raise AssertionError(f"{tag}: not the data-parallel path")
+            log(f"  {tag}: {out[f'{tag}_s']:.1f} s")
+            return res.stdout
+
+        def runs():
+            return sorted(glob.glob(os.path.join(root, "0*-*")))
+
+        text = launch("first", ["-m", "pggan_tpu_torch.cli.train"], DP_STOP)
+        m = re.search(r"fade\) (\[.*\]); peak device memory", text)
+        first_keys = set(ast.literal_eval(m.group(1)))
+        steps1, stop1 = schedule_steps(0, DP_STOP)
+        if first_keys != {k for k, n in steps1.items() if n >= 2}:
+            raise AssertionError(f"first run: graphs {sorted(first_keys)}, "
+                                 f"steps {dict(steps1)}")
+        run1, = runs()
+        state1, = glob.glob(os.path.join(run1, "training-state-*.dat"))
+        _, nimg, _, _ = checkpoint.load_training_state(state1)
+        rows = [json.loads(ln) for ln in open(os.path.join(run1,
+                                                           "metrics.jsonl"))]
+        if nimg != stop1 or rows[-1]["kimg_stat"] != nimg / 1000:
+            raise AssertionError(f"first run: {nimg} images, schedule "
+                                 f"{stop1}, last tick's kimg "
+                                 f"{rows[-1]['kimg_stat']}")
+        report = os.path.join(root, "cli_rank.json")
+        launch("resumed", [os.path.abspath(__file__), "--cli-rank", report,
+                           state1], DP_TOTAL, "--resume_network", "latest")
+        log(f"  resumed at {nimg} images: parameters, both Adams, the "
+            f"rank's generator and the clock equal the saved state bit for "
+            f"bit")
+        with open(report) as f:
+            rank = json.load(f)
+        steps2, stop2 = schedule_steps(nimg, DP_TOTAL)
+        want = sorted([int(d), int(b), bool(f), n - 1]
+                      for (d, b, f), n in steps2.items() if n >= 2)
+        if sorted(rank["replays"]) != want or rank["cur_nimg"] != stop2:
+            raise AssertionError(f"resumed run: replays {rank['replays']}, "
+                                 f"schedule {want}; {rank['cur_nimg']} "
+                                 f"images, schedule {stop2}")
+        run2, = [d for d in runs() if d != run1]
+        rows = [json.loads(ln) for ln in open(os.path.join(run2,
+                                                           "metrics.jsonl"))]
+        if rows[-1]["kimg_stat"] != stop2 / 1000:
+            raise AssertionError(f"resumed run: kimg {rows[-1]}")
+    for name in DP_CLI_KERNELS:
+        if not rank["launches"].get(name) or not rank["replayed"].get(name):
+            raise AssertionError(f"{name} was never launched by the torchrun "
+                                 f"run, or never replayed")
+    log(f"  every step after a stage's first replayed ({rank['replays']}); "
+        f"launches {rank['launches']}, kernels in the replays "
+        f"{rank['replayed']}")
+    out.update({"first_run_graphs": sorted(map(str, first_keys)),
+                "resumed_replays": rank["replays"],
+                "launches_eager": rank["launches"],
+                "kernels_run_in_replays": rank["replayed"]})
+    return out, rank["launches"], rank["replayed"]
+
+
+def replicas_phase(torch):
+    """Phase D: ``sample_images`` over two replicas of G on the one card
+    (``devices=["cuda:0", "cuda:0"]``), depth 8, chunks of BATCH, chain on
+    and off, against the one-device serve (the served-images bar) with
+    exact launch counts; img/s of both from warm calls in turns."""
+    import numpy as np
+    from pggan_tpu_torch.models.generator import Generator
+    from pggan_tpu_torch.ops import _build
+    from pggan_tpu_torch.sampling import sample_images
+    G = Generator((1, 3, 1024, 1024),
+                  generator=torch.Generator().manual_seed(SEED)).cuda()
+    two = ["cuda:0", "cuda:0"]
+    chunks = -(-DP_SAMPLES // BATCH)
+    out, launches = {}, collections.Counter()
+    for chain in (True, False):
+        G.inference_chain = chain
+        conv = "conv3x3_chain_pn" if chain else "conv3x3_act_pn"
+
+        def run(devices, n=DP_SAMPLES):
+            imgs = sample_images(G, 8, 1.0, n, minibatch=BATCH,
+                                 rng=np.random.RandomState(SEED),
+                                 devices=devices)
+            torch.cuda.synchronize()
+            return imgs
+        _build.LAUNCHES.clear()
+        got = run(two)
+        counts = dict(_build.LAUNCHES)
+        fwd = 2 * chunks  # a forward on each replica a chunk
+        expect = {conv: (3 if chain else 6) * fwd, "upsample2x": 3 * fwd}
+        if counts != expect:
+            raise AssertionError(f"two replicas, chain {chain}: launches "
+                                 f"{counts}, expected {expect}")
+        launches.update(counts)
+        want = run(None)
+        if got.shape != (DP_SAMPLES, 1024, 1024, 3):
+            raise AssertionError(f"two replicas: {got.shape}")
+        err = float(np.abs(got - want).max())
+        np.testing.assert_allclose(got, want, **NET_TOL,
+                                   err_msg=f"two replicas, chain {chain}")
+        rates = {"one": [], "two": []}
+        for devices in (None, two, two, None):
+            t0 = time.perf_counter()
+            run(devices)
+            rates["one" if devices is None else "two"].append(
+                DP_SAMPLES / (time.perf_counter() - t0))
+        tag = "chain" if chain else "chain_off"
+        out[tag] = {"max_abs_err": err, "img_per_s_one": rates["one"],
+                    "img_per_s_two_replicas": rates["two"],
+                    "launches": counts}
+        log(f"  chain {'on' if chain else 'off'}: two replicas against one "
+            f"device, max abs err {err:.2e} (bar {NET_TOL}); launches "
+            f"{counts}; img/s one device "
+            f"{', '.join(f'{r:.1f}' for r in rates['one'])}, two replicas "
+            f"{', '.join(f'{r:.1f}' for r in rates['two'])}")
+    del G
+    torch.cuda.empty_cache()
+    return out, dict(launches)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2720,13 +3341,39 @@ def main() -> int:
     keep.cleanup()
     log(f"phase 16 passed ({time.perf_counter() - t_start:.0f} s so far)")
 
+    # phases A-D: data parallelism on the one card
+    log(f"phase A: the depth-{TRAIN_DEPTH} step under a one-rank NCCL "
+        f"group, graphed, batch {TRAIN_BATCH}, on {card}")
+    dp = {"nccl": None, "gloo": None, "torchrun": None, "replicas": None}
+    dp["nccl"], nccl_launches, nccl_replayed = nccl_phase(torch)
+    log(f"phase A passed ({time.perf_counter() - t_start:.0f} s so far)")
+    log(f"phase B: {GLOO_WORLD} gloo ranks on the one card, eager, depth "
+        f"{GLOO_DEPTH}, global batch {GLOO_BATCH}, against one process's "
+        f"global-batch step")
+    dp["gloo"], gloo_launches = gloo_phase(torch)
+    log(f"phase B passed ({time.perf_counter() - t_start:.0f} s so far)")
+    log(f"phase C: the train CLI under torchrun --nproc_per_node 1 (NCCL), "
+        f"paper widths, depth 0 to 3, to {DP_STOP} kimg, resumed to "
+        f"{DP_TOTAL}")
+    dp["torchrun"], torchrun_launches, torchrun_replayed = \
+        torchrun_phase(torch)
+    log(f"phase C passed ({time.perf_counter() - t_start:.0f} s so far)")
+    log(f"phase D: sample_images over two replicas of G on the one card, "
+        f"depth 8, {DP_SAMPLES} images in chunks of {BATCH}, chain on and "
+        f"off")
+    dp["replicas"], replica_launches = replicas_phase(torch)
+    log(f"phase D passed ({time.perf_counter() - t_start:.0f} s so far)")
+
     # the result lines. ms, plain_ms, library_ms and the bounds: per
     # depth-8 fade train step (batch 3) for the kernels the step runs, per
     # depth-8 serve forward (batch 16) for the serve-only chain
     # launches: the wrapper's launches on the paths, each counted from
     # zero (phase 4's serves, phase 5's eager steps, phase 9's resumed run,
-    # phase 10's sound run and sound serve, phase 11's eval); by path
-    # beside it, with the kernels the runs' graph replays ran
+    # phase 10's sound run and sound serve, phase 11's eval, phases 12-16's
+    # bf16 paths, phase A's eager calls under the NCCL group, phase B's
+    # compared steps on both gloo ranks, phase C's resumed torchrun run,
+    # phase D's two-replica serves); by path beside it, with the kernels
+    # the runs' graph replays ran
     kernels = []
     for name, (src, rep) in KERNELS.items():
         per_step = name not in SERVE_ONLY
@@ -2745,7 +3392,13 @@ def main() -> int:
                        bf16_train_replayed.get(name, 0),
                    "bf16_progressive_run": bf16_run_launches.get(name, 0),
                    "bf16_progressive_run_replayed":
-                       bf16_run_replayed.get(name, 0)}
+                       bf16_run_replayed.get(name, 0),
+                   "nccl_step_eager": nccl_launches.get(name, 0),
+                   "nccl_step_replayed": nccl_replayed.get(name, 0),
+                   "gloo_steps_two_ranks": gloo_launches.get(name, 0),
+                   "torchrun_cli": torchrun_launches.get(name, 0),
+                   "torchrun_cli_replayed": torchrun_replayed.get(name, 0),
+                   "sample_two_replicas": replica_launches.get(name, 0)}
         log(f"  {name}: launches by path {by_path}")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -2776,6 +3429,8 @@ def main() -> int:
     print(json.dumps({"eval": {**evaluation, "card": card_line}}))
     print(json.dumps({"bf16": {**bf16, "card": card_line}}))
     print(json.dumps({"export": {**export, "card": card_line}}))
+    for phase, result in dp.items():
+        print(json.dumps({phase: {**result, "card": card_line}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2783,5 +3438,15 @@ def main() -> int:
     return 0
 
 
+def worker(argv) -> int:
+    """A process that a phase starts: ``--gloo-rank WORK`` (phase B)
+    or ``--cli-rank OUT SAVED ARGV...`` (phase C, under torchrun)."""
+    if argv[0] == "--gloo-rank":
+        return gloo_rank(argv[1])
+    if argv[0] == "--cli-rank":
+        return cli_rank(argv[1], argv[2], argv[3:])
+    raise SystemExit(f"chip_smoke.py takes no arguments, got {argv}")
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(worker(sys.argv[1:]) if len(sys.argv) > 1 else main())

@@ -15,7 +15,10 @@ resume needs beyond the snapshots (``pggan_tpu/checkpoint.py:125-146``):
 G's and D's parameters, both Adam states (``mu``, ``nu``, ``count``), the
 G EMA, the state's ``torch.Generator`` state, and the trainer's clock. It is
 the port's own pickle of plain dicts of numpy arrays keyed by parameter
-name, with no torch class inside: ``framework: "pggan_tpu_torch"``.
+name, with no torch class inside: ``framework: "pggan_tpu_torch"``. A
+data-parallel run's state also holds every rank's generator state
+(``rank_generators``), so that each rank resumes its own latent stream;
+rank 0 writes it, every rank reads it.
 ``training_state_from_jax`` converts a JAX package's training state to it.
 """
 
@@ -213,23 +216,32 @@ def _adam(opt, module) -> dict:
             "count": int(opt.count)}
 
 
-def training_state_dict(state) -> dict:
+def training_state_dict(state, rank_generators=None) -> dict:
     """A ``TrainState`` as plain dicts of numpy arrays keyed by parameter
-    name (the payload's ``state``)."""
-    return {
+    name (the payload's ``state``). ``rank_generators``: every rank's
+    generator state (``parallel.gather_generator_states``) in a
+    data-parallel run."""
+    sd = {
         "G": _numpy(state.G), "D": _numpy(state.D),
         "g_opt": _adam(state.g_opt, state.G),
         "d_opt": _adam(state.d_opt, state.D),
         "g_ema": None if state.g_ema is None else _numpy(state.g_ema),
         "generator": state.generator.get_state().numpy().copy(),
     }
+    if rank_generators is not None:
+        sd["rank_generators"] = [g.numpy().copy() for g in rank_generators]
+    return sd
 
 
 @torch.no_grad()
-def restore_training_state(state, sd: dict) -> None:
+def restore_training_state(state, sd: dict, group=None) -> None:
     """Copy a ``training_state_dict`` into ``state``'s tensors in place,
     bit for bit. A G EMA in ``sd`` goes into ``state.g_ema`` when the state
-    keeps one. ``sd["generator"]`` None leaves the generator as it is."""
+    keeps one. ``sd["generator"]`` None leaves the generator as it is.
+    Under ``group`` (a ``parallel.Group``) each rank takes its own
+    generator state from a state saved by as many ranks; otherwise rank 0
+    takes ``sd["generator"]`` and the other ranks keep their seeded
+    generators."""
     def load(module, arrays):
         for k, p in module.named_parameters():
             p.copy_(torch.from_numpy(arrays[k]))
@@ -247,16 +259,22 @@ def restore_training_state(state, sd: dict) -> None:
     load_opt(state.d_opt, state.D, sd["d_opt"])
     if state.g_ema is not None and sd.get("g_ema") is not None:
         load(state.g_ema, sd["g_ema"])
-    if sd.get("generator") is not None:
+    rank = 0 if group is None else group.rank
+    ranks = sd.get("rank_generators")
+    if group is not None and ranks is not None \
+            and len(ranks) == group.world_size:
+        state.generator.set_state(torch.from_numpy(ranks[rank]))
+    elif rank == 0 and sd.get("generator") is not None:
         state.generator.set_state(torch.from_numpy(sd["generator"]))
 
 
 def save_training_state(path: str, state, cur_nimg: int, iterations: int,
-                        base_time: float = 0.0) -> None:
+                        base_time: float = 0.0,
+                        rank_generators=None) -> None:
     payload = {
         "framework": "pggan_tpu_torch",
         "format_version": 1,
-        "state": training_state_dict(state),
+        "state": training_state_dict(state, rank_generators),
         "cur_nimg": int(cur_nimg),
         "iterations": int(iterations),
         "base_time": float(base_time),

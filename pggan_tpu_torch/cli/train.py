@@ -2,11 +2,13 @@
 counterpart of ``pggan_tpu/cli/train.py`` (reference train.py).
 
 Composes dataset -> models -> step builder -> trainer -> plugin stack and
-runs the progressive schedule on one device:
+runs the progressive schedule on one device, or data-parallel on N cards
+with one process each:
 
     python -m pggan_tpu_torch.cli.train --dataset_class SyntheticDataset \\
         --SyntheticDataset.resolution 1024 --postprocessors "['ImageSaver']" \\
         --total_kimg 3000
+    torchrun --nproc_per_node N -m pggan_tpu_torch.cli.train ...
 
 The flags are the JAX CLI's plus ``--device`` (default ``cuda``, which
 raises without a card; ``--device cpu`` trains on the CPU with the
@@ -17,12 +19,22 @@ first is a CUDA graph replay (``training/steps.py``). Checkpoints are the
 JAX format's snapshots plus the port's training state; ``--resume_network
 latest`` resumes the newest run under ``--result_dir``.
 
+Under ``torchrun`` (``--data_parallel``, the default) every rank joins the
+process group (``parallel.initialize_distributed``: NCCL on the card, gloo
+with ``--device cpu``) and trains on ``cuda:LOCAL_RANK``; the per-depth
+minibatches are global batches, rounded up to a multiple of the world size
+(``fit_minibatch_to_mesh``, logged), with ``--scale_lr_with_batch``
+scaling the learning rate by the growth; each rank loads its shard of the
+items, seeded ``random_seed + rank``; rank 0 alone writes the result
+directory (log, metrics, samples, checkpoints). ``--num_devices``, when
+set, must equal the world size. ``--data_parallel False`` refuses a launch
+of several ranks.
+
 Accepted for the JAX CLI's sake and without effect here:
-``--Trainer.steps_per_dispatch``, ``--Trainer.inflight_budget_mb`` (a
-replay is one launch a step already), and ``--data_parallel`` /
-``--num_devices`` / ``--scale_lr_with_batch`` (one device). ``--debug_nans``
-turns on autograd's anomaly detection. ``--DepthManager.precompile_ahead
-True`` raises: a graph is captured after a real step of its stage.
+``--Trainer.steps_per_dispatch`` and ``--Trainer.inflight_budget_mb`` (a
+replay is one launch a step already). ``--debug_nans`` turns on autograd's
+anomaly detection. ``--DepthManager.precompile_ahead True`` raises: a graph
+is captured after a real step of its stage.
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ from functools import partial
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import pggan_tpu_torch.data.datasets as dataset_module
 import pggan_tpu_torch.postprocess as postprocess_module
@@ -47,6 +60,13 @@ from pggan_tpu_torch.checkpoint import (
 from pggan_tpu_torch.cli.generate import resolve_device
 from pggan_tpu_torch.data.loader import DataIterator
 from pggan_tpu_torch.models import Discriminator, Generator
+from pggan_tpu_torch.parallel import (
+    check_batch_divisible,
+    fit_minibatch_to_mesh,
+    initialize_distributed,
+    replicate,
+)
+from pggan_tpu_torch.training import schedule
 from pggan_tpu_torch.training.plugins import (
     AbsoluteTimeMonitor,
     DepthManager,
@@ -116,13 +136,13 @@ default_params = OrderedDict(
     dataset_class="",
     postprocessors=[],
     checkpoints_dir="",
-    data_parallel=True,   # one device here: no effect
-    num_devices=0,        # one device here: no effect
+    data_parallel=True,   # train over the ranks of a torchrun launch
+    num_devices=0,        # 0: the launch's world size; else must equal it
     metrics_jsonl=True,   # per-tick metrics.jsonl in the result dir
     debug_nans=False,     # autograd anomaly detection
     profile_dir="",       # a torch.profiler trace of a few steps
     device_input_prep=False,  # ship uint8 batches; fade+remap on the device
-    scale_lr_with_batch=False,  # one device here: no effect
+    scale_lr_with_batch=False,  # scale the lr with a rounded-up batch
     device="cuda",
 )
 
@@ -195,25 +215,114 @@ def _dataset(params):
     return dataset
 
 
+class _Silent:
+    """The logger of a rank other than 0: rank 0 alone writes the log."""
+
+    def log(self, msg):
+        pass
+
+    def close(self):
+        pass
+
+
+def _group(params, device):
+    """This rank's process group under a ``torchrun`` launch, or None
+    (``pggan_tpu/cli/train.py:279-284``)."""
+    launched = dist.is_initialized() or int(
+        os.environ.get("WORLD_SIZE", 1)) > 1
+    if not params["data_parallel"]:
+        if launched:
+            raise SystemExit("--data_parallel False, but launched over "
+                             "several ranks")
+        return None
+    group = initialize_distributed(device.type)
+    n = 1 if group is None else group.world_size
+    if params["num_devices"] and params["num_devices"] != n:
+        raise SystemExit(
+            f"--num_devices {params['num_devices']}, but {n} rank(s): launch "
+            f"one process per device (torchrun --nproc_per_node "
+            f"{params['num_devices']} -m pggan_tpu_torch.cli.train ...)")
+    return group
+
+
+def _fit_batches(dm_cfg, world, scale_lr, logger) -> None:
+    """The data-parallel batch policy (``pggan_tpu/cli/train.py:379-400``):
+    each per-depth global minibatch rounded up to a multiple of the world
+    size, logged; with ``scale_lr`` the learning rate grows with it."""
+    ref_def = dm_cfg.get("minibatch_default", schedule.MINIBATCH_DEFAULT)
+    ref_over = dm_cfg.get("minibatch_overrides",
+                          schedule.MINIBATCH_OVERRIDES)
+    new_def, new_over, changed = fit_minibatch_to_mesh(ref_def, ref_over,
+                                                       world)
+    dm_cfg["minibatch_default"] = new_def
+    dm_cfg["minibatch_overrides"] = new_over
+    if changed:
+        logger.log(
+            f"Pod batch policy: global minibatches rounded up to multiples "
+            f"of {world} devices: " + ", ".join(
+                ("default" if d == -1 else f"depth {d}") + f" {old}->{new}"
+                for d, (old, new) in sorted(changed.items())))
+        if scale_lr:
+            dm_cfg["lr_reference_minibatch"] = {
+                "default": ref_def, "overrides": dict(ref_over or {})}
+            logger.log("LR linearly scaled with the grown batches "
+                       "(--scale_lr_with_batch)")
+
+
+def _register_outputs(trainer, params, result_dir, latent_size) -> None:
+    """The sample writer and its postprocessors, and the trace profiler:
+    rank 0's."""
+    postprocessors = []
+    for x in params["postprocessors"]:
+        proc_cls = getattr(postprocess_module, x, None)
+        if proc_cls is None:
+            names = sorted(c.__name__
+                           for c in get_all_classes(postprocess_module))
+            raise SystemExit(f"Unknown postprocessor {x!r}; "
+                             f"available: {', '.join(names)}")
+        cfg = {k: (os.path.join(result_dir, v) if k == "samples_path" else v)
+               for k, v in pass_device(proc_cls, params.get(x, {}),
+                                       params["device"]).items()}
+        postprocessors.append(proc_cls(**cfg))
+    og_cfg = dict(params.get("OutputGenerator", {}))
+    alias_default(og_cfg, "output_snapshot_ticks", OutputGenerator,
+                   params["image_snapshot_ticks"])
+    trainer.register_plugin(OutputGenerator(
+        lambda n: random_latents(n, latent_size), postprocessors, **og_cfg))
+    if params["profile_dir"]:
+        trainer.register_plugin(TraceProfiler(params["profile_dir"]))
+
+
 def build(params):
     """Everything ``main`` runs, up to the first step: returns
     ``(trainer, logger, total_kimg)`` with the plugins registered and, on a
     resume, the training state restored."""
     device = resolve_device(params["device"])
+    group = _group(params, device)
+    if group is not None:
+        device = group.device
+    rank = 0 if group is None else group.rank
     if params.get("debug_nans"):
         torch.autograd.set_detect_anomaly(True)
     seed = params["random_seed"]
     np.random.seed(seed)
     dataset = _dataset(params)
-    result_dir = create_result_subdir(params["result_dir"], params["exp_name"])
 
     stats_to_log = ["tick_stat", "kimg_stat"]
     if params["progressive_growing"]:
         stats_to_log.extend(["depth", "alpha", "lod", "minibatch_size"])
     stats_to_log.extend(["time", "sec.tick", "sec.kimg"] + LOSSES)
-    logger = TeeLogger(os.path.join(result_dir, "log.txt"), stats_to_log,
-                       [(1, "epoch")])
+    result_dir = None
+    logger = _Silent()
+    if rank == 0:
+        result_dir = create_result_subdir(params["result_dir"],
+                                          params["exp_name"])
+        logger = TeeLogger(os.path.join(result_dir, "log.txt"),
+                           stats_to_log, [(1, "epoch")])
     logger.log(params_to_str(params))
+    if group is not None:
+        logger.log(f"Data-parallel over {group.world_size} rank(s) "
+                   f"({group.backend}), rank 0 on {device}")
 
     # -- models (reference train.py:120-138) --------------------------------
     resume_sd = None
@@ -257,9 +366,11 @@ def build(params):
     # initialization), unless the resumed state brings its own
     g_ema_beta = float(params["g_ema_beta"])
     state = init_state(G, D, seed=seed + 2, g_ema=g_ema_beta > 0, b1=b1,
-                       b2=b2, eps=eps)
+                       b2=b2, eps=eps, group=group)
     if resume_sd is not None:
-        restore_training_state(state, resume_sd)
+        restore_training_state(state, resume_sd, group)
+        if group is not None:  # every rank read it: rank 0's copy rules
+            replicate(state.tensors())
         if resume_sd["g_ema"] is not None and state.g_ema is None:
             logger.log("Resumed state has a generator EMA but --g_ema_beta "
                        "is 0; dropping the stale average (pass --g_ema_beta "
@@ -278,13 +389,18 @@ def build(params):
         iwass_lambda=params["iwass_lambda"],
         iwass_epsilon=params["iwass_epsilon"],
         iwass_target=params["iwass_target"],
-        g_ema_beta=g_ema_beta if g_ema_beta > 0 else None)
+        g_ema_beta=g_ema_beta if g_ema_beta > 0 else None, group=group)
 
     # -- input pipeline (reference train.py:140-145) ------------------------
+    world = 1 if group is None else group.world_size
+
     def get_dataiter(minibatch_size):
-        return DataIterator(dataset, minibatch_size,
+        # minibatch_size is the global batch; each rank loads its shard
+        check_batch_divisible(minibatch_size, world)
+        return DataIterator(dataset, minibatch_size // world,
                             num_workers=params["num_data_workers"],
-                            seed=seed, raw=params["device_input_prep"])
+                            seed=seed + rank, raw=params["device_input_prep"],
+                            shard_index=rank, num_shards=world)
 
     def rl(bs):
         return lambda: random_latents(bs, latent_size)
@@ -308,6 +424,9 @@ def build(params):
             dm_cfg["max_lod"] = G.R
         if dm_cfg.get("depth_offset") is None:
             dm_cfg["depth_offset"] = dataset.model_dataset_depth_offset
+        if group is not None:
+            _fit_batches(dm_cfg, world, params["scale_lr_with_batch"],
+                         logger)
         trainer.register_plugin(DepthManager(
             get_dataiter, rl, min(G.max_depth, D.max_depth), **dm_cfg))
     else:
@@ -320,41 +439,26 @@ def build(params):
     # "time" stat of the tick it saves; --resume_time overrides it
     trainer.register_plugin(AbsoluteTimeMonitor(
         params["resume_time"] or resume_base_time))
+    # on every rank: it gathers each rank's generator state; rank 0 writes
     trainer.register_plugin(SaverPlugin(params["checkpoints_dir"] or result_dir,
                                         **params.get("SaverPlugin", {})))
-    postprocessors = []
-    for x in params["postprocessors"]:
-        proc_cls = getattr(postprocess_module, x, None)
-        if proc_cls is None:
-            names = sorted(c.__name__
-                           for c in get_all_classes(postprocess_module))
-            raise SystemExit(f"Unknown postprocessor {x!r}; "
-                             f"available: {', '.join(names)}")
-        cfg = {k: (os.path.join(result_dir, v) if k == "samples_path" else v)
-               for k, v in pass_device(proc_cls, params.get(x, {}),
-                                       params["device"]).items()}
-        postprocessors.append(proc_cls(**cfg))
-    og_cfg = dict(params.get("OutputGenerator", {}))
-    alias_default(og_cfg, "output_snapshot_ticks", OutputGenerator,
-                   params["image_snapshot_ticks"])
-    trainer.register_plugin(OutputGenerator(
-        lambda n: random_latents(n, latent_size), postprocessors, **og_cfg))
-    if params["profile_dir"]:
-        trainer.register_plugin(TraceProfiler(params["profile_dir"]))
+    if rank == 0:
+        _register_outputs(trainer, params, result_dir, latent_size)
     trainer.register_plugin(LRScheduler(params["D_lr_max"],
                                         params["G_lr_max"],
                                         params["lr_rampup_kimg"]))
-    trainer.register_plugin(logger)
-    metric_fields = [f"{name}.epoch_mean" for name in LOSSES] + \
-        ["sec.kimg", "sec.tick", "kimg_stat"] + \
-        (["depth", "alpha"] if params["progressive_growing"] else [])
-    experiment = make_experiment(params)
-    if params["metrics_jsonl"] or experiment is not None:
-        trainer.register_plugin(MetricsExporter(
-            metric_fields,
-            jsonl_path=(os.path.join(result_dir, "metrics.jsonl")
-                        if params["metrics_jsonl"] else None),
-            experiment=experiment))
+    if rank == 0:
+        trainer.register_plugin(logger)
+        metric_fields = [f"{name}.epoch_mean" for name in LOSSES] + \
+            ["sec.kimg", "sec.tick", "kimg_stat"] + \
+            (["depth", "alpha"] if params["progressive_growing"] else [])
+        experiment = make_experiment(params)
+        if params["metrics_jsonl"] or experiment is not None:
+            trainer.register_plugin(MetricsExporter(
+                metric_fields,
+                jsonl_path=(os.path.join(result_dir, "metrics.jsonl")
+                            if params["metrics_jsonl"] else None),
+                experiment=experiment))
     return trainer, logger, params["total_kimg"]
 
 
@@ -366,6 +470,8 @@ def main(params):
         torch.cuda.reset_peak_memory_stats(device)
     try:
         trainer.run(total_kimg)
+        if trainer.builder.group is not None:
+            dist.barrier()  # the run ends once rank 0 has written its files
         if device.type == "cuda":
             keys = trainer.builder.graphed_keys()
             logger.log(f"CUDA graphs captured: {len(keys)}, for (depth, "
@@ -403,7 +509,12 @@ def build_parser() -> ArgumentParser:
 
 def cli_main(argv=None):
     params = get_structured_params(vars(build_parser().parse_args(argv)))
-    return main(params)
+    owned = not dist.is_initialized()  # a group this run creates, it ends
+    try:
+        return main(params)
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

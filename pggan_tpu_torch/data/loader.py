@@ -10,8 +10,9 @@ they are, for the trainer to prep on the device
 (``raw_batch``) from a level in memory, a memmapped disk pyramid or a
 windowed H5 read; one without (a lazy folder, float levels) is stacked
 item by item. Threads see ``dataset.alpha`` as the
-schedule moves it. The sampler runs over all items: the port trains on one
-card, and the JAX loader's per-process shards come with data parallelism.
+schedule moves it. Under data parallelism each rank's iterator samples
+from its own shard of the items, ``shard_index::num_shards`` (the JAX
+loader's index space, ``pggan_tpu/data/loader.py:91-95``).
 """
 
 from __future__ import annotations
@@ -71,16 +72,22 @@ class DataIterator:
     Each worker thread assembles complete batches (sampling indices from the
     shared sampler) and pushes them to a bounded queue; ``__next__`` pops a
     ready batch. Batches are always exactly ``batch_size`` (the sampler is
-    infinite). ``close`` stops the workers.
+    infinite). ``close`` stops the workers. ``shard_index`` and
+    ``num_shards`` restrict the sampler to the items
+    ``shard_index::num_shards``: one rank's shard under data parallelism.
     """
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 4,
-                 seed: int | None = None, raw: bool = False):
+                 seed: int | None = None, raw: bool = False,
+                 shard_index: int = 0, num_shards: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.raw = raw  # yield uint8 raw batches; prep happens on the device
         self.num_workers = max(1, num_workers)
-        self.sampler = InfiniteRandomSampler(len(dataset), seed)
+        n = len(dataset)
+        self.sampler = _ShardedSampler(
+            np.arange(n) if num_shards <= 1
+            else np.arange(shard_index, n, num_shards), seed)
         self._queue: queue.Queue = queue.Queue(maxsize=PREFETCH)
         self._stop = threading.Event()
         self._threads = [

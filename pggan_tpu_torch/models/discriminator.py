@@ -18,6 +18,11 @@ means "the NHCW head on the hand-written kernels". ``compute_dtype=
 'bfloat16'`` runs every conv in bf16 and turns the head off, as the JAX
 package does (``pggan_tpu/models/discriminator.py:142``): its NCHW pools
 run the bf16 pool kernel, the fade blend and the final dense layer float32.
+
+Under data parallelism D carries its process group in ``group`` (a
+``parallel.Group``, set by the train step's builder; None otherwise), as the
+JAX D carries its ``mesh``: the minibatch-stddev statistic is then the
+global batch's (``ops/primitives.py``), and ``stat_groups`` must stay 1.
 """
 
 from __future__ import annotations
@@ -76,6 +81,7 @@ class Discriminator(nn.Module):
             "resolution must be a power of two >= 4 (network.py:204)"
         self.max_depth = self.R - 2
         self.eps = 1e-8
+        self.group = None  # the data-parallel process group, if any
 
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -118,7 +124,8 @@ class Discriminator(nn.Module):
         if first:
             h = self._fromrgb(p, h)
         if is_last:
-            h = minibatch_stddev(h, groups=stat_groups)  # network.py:168
+            h = minibatch_stddev(h, groups=stat_groups,
+                                 group=self.group)  # network.py:168
             h = self._conv(p["c1"], h, pad=1)
             return self._conv(p["c2"], h, pad=0)  # 4x4 valid -> 1x1
         h = self._conv(p["c1"], h, pad=1)

@@ -18,7 +18,11 @@ raises on any nonzero code. ``launch`` also counts each launch by kernel
 name in ``LAUNCHES``, which is how a run shows that its main path went
 through the kernels. A call made while the stream is being captured into
 a CUDA graph only records the kernel, which then runs at each replay
-without a call: it counts in ``CAPTURED`` instead.
+without a call: it counts in ``CAPTURED`` instead. A kernel launches on
+the current stream of its tensors' device, with that device made current
+for the call: the runtime launches on the current device, and a replica
+of a model on another card than the current one must not be launched
+there with pointers into its own card's memory.
 """
 
 from __future__ import annotations
@@ -206,11 +210,18 @@ def _entry(fn: str):
     return f
 
 
-def _current_stream() -> int:
-    """The current CUDA stream's handle, from the raw getter: building the
-    ``torch.cuda.Stream`` object of ``current_stream()`` costs the host
-    more than many of the kernels take on the card."""
-    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+def _current_stream(device: int) -> int:
+    """The handle of CUDA device ``device``'s current stream, from the raw
+    getter: building the ``torch.cuda.Stream`` object of
+    ``current_stream()`` costs the host more than many of the kernels take
+    on the card."""
+    return torch._C._cuda_getCurrentRawStream(device)
+
+
+def _device_guard(device: int):
+    """Make CUDA device ``device`` current for a launch, and restore the
+    previous one after it."""
+    return torch.cuda.device(device)
 
 
 def _capturing() -> bool:
@@ -218,18 +229,23 @@ def _capturing() -> bool:
     return torch._C._cuda_isCurrentStreamCapturing()
 
 
-def launch(name: str, fn: str, *args) -> None:
-    """Call C entry point ``fn`` on the current stream (appended as the last
-    argument), raise if the launch failed, and count it under ``name``
-    (in ``CAPTURED`` while a graph capture records it).
-    The ctypes function is looked up and typed on the first call only, so
-    a launch costs one dictionary lookup and the foreign call on the host."""
+def launch(name: str, fn: str, device: torch.device, *args) -> None:
+    """Call C entry point ``fn`` on the current stream of ``device`` (the
+    CUDA device of the kernel's tensors; the stream is appended as the last
+    argument) with ``device`` made current, raise if the launch failed,
+    and count it under ``name`` (in ``CAPTURED`` while a graph capture
+    records it). The ctypes function is looked up and typed on the first
+    call only, so a launch costs one dictionary lookup, the device guard
+    and the foreign call on the host."""
     f = _ENTRY.get(fn) or _entry(fn)
-    err = f(*args, _current_stream())
+    index = device.index
+    with _device_guard(index):
+        err = f(*args, _current_stream(index))
+        capturing = _capturing()
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: CUDA error {err} "
                            f"({library().pggan_error_string(err).decode()})")
-    (CAPTURED if _capturing() else LAUNCHES)[name] += 1
+    (CAPTURED if capturing else LAUNCHES)[name] += 1
 
 
 def check_kernel_inputs(*tensors: torch.Tensor, bf16: bool = False) -> None:

@@ -166,8 +166,9 @@ def _launch(name, epi, x, w, b, slope, eps):
     # 2)
     ws = torch.empty(-(-k // kt) * 9 * -(-c // 8) * 8 * (kt + 4) * 2,
                      dtype=x.dtype, device=x.device)
-    _build.launch(name, "pggan_conv3x3", x.data_ptr(), w.data_ptr(),
-                  None if b is None else b.data_ptr(), y.data_ptr(),
+    _build.launch(name, "pggan_conv3x3", x.device, x.data_ptr(),
+                  w.data_ptr(), None if b is None else b.data_ptr(),
+                  y.data_ptr(),
                   None if r is None else r.data_ptr(), ws.data_ptr(),
                   n, h, c, wd, k, kt, epi, float(slope), float(eps))
     return y, r
@@ -227,7 +228,7 @@ def _dw_fwd(x, ct):
     kt, rows_per_block, row_chunks, col_tiles = _dw_plan(n, h, c, wd, k)
     ws = torch.empty((n * row_chunks * col_tiles, 9, c, k), dtype=x.dtype,
                      device=x.device)
-    _build.launch("conv3x3_dw", "pggan_conv3x3_dw", x.data_ptr(),
+    _build.launch("conv3x3_dw", "pggan_conv3x3_dw", x.device, x.data_ptr(),
                   ct.data_ptr(), ws.data_ptr(), dw.data_ptr(), n, h, c, wd, k,
                   kt, rows_per_block, row_chunks, col_tiles)
     return dw

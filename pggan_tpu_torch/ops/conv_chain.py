@@ -88,10 +88,11 @@ def conv3x3_chain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         ws = torch.empty(_workspace_floats(c, k1, k2), dtype=x.dtype,
                          device=x.device)
         name = "conv3x3_chain" if pn_eps is None else "conv3x3_chain_pn"
-        _build.launch(name, "pggan_conv3x3_chain", x.data_ptr(),
-                      w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                      b2.data_ptr(), y.data_ptr(), ws.data_ptr(), n, h, c,
-                      wd, k1, k2, k_tier(k1), k_tier(k2),
+        _build.launch(name, "pggan_conv3x3_chain", x.device,
+                      x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                      w2.data_ptr(), b2.data_ptr(), y.data_ptr(),
+                      ws.data_ptr(), n, h, c, wd, k1, k2, k_tier(k1),
+                      k_tier(k2),
                       int(pn_eps is not None), float(slope),
                       float(pn_eps or 0.0))
     return y

@@ -16,7 +16,8 @@ superposition, the pool-in spread) in float32 first, then casts weight and
 input to bf16; the conv emits bf16, and the epilogue adds the bias,
 applies the activation and the pixelnorm in float32 and casts back. The
 minibatch stddev takes its statistic in float32 and casts its channel to
-the input's dtype. Parameters and the dense layer stay float32.
+the input's dtype; under data parallelism it takes it over the global
+batch (``parallel/mesh.py``). Parameters and the dense layer stay float32.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from pggan_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 def nf(stage: int, fmap_base: int = 4096, fmap_decay: float = 1.0,
@@ -59,21 +62,43 @@ def pixelnorm(x: torch.Tensor, eps: float = 1e-8, dim: int = 1) -> torch.Tensor:
 
 
 def minibatch_stddev(x: torch.Tensor, eps: float = 1e-8,
-                     groups: int = 1) -> torch.Tensor:
+                     groups: int = 1, group=None) -> torch.Tensor:
     """Append one channel (NCHW dim 1) holding the scalar stddev
     ``sqrt(mean((x - mean(x))^2) + eps)`` of the whole activation tensor
     (reference network.py:174-187). ``groups > 1`` takes the statistic over
     each of ``groups`` equal batch slices, exactly as ``groups`` separate
-    calls would (``pggan_tpu/ops/primitives.py:62-93``)."""
+    calls would (``pggan_tpu/ops/primitives.py:62-93``).
+
+    With ``group`` (a ``parallel.Group``) ``x`` is this rank's shard and the
+    statistic is the global batch's, as GSPMD makes it under the JAX
+    package's mesh: all-reduced sums, first of x and the element count,
+    then of the squared deviations from the global mean. The all-reduce's
+    backward is an all-reduce again, so the statistic's gradient (and its
+    gradient's gradient, for the gradient penalty) sums the upstream
+    gradients of every rank. Every rank must call it at the same point."""
     n = x.shape[0]
     if n % groups:
         raise ValueError(f"batch {n} does not split into {groups} groups")
     # the statistic in f32 (or f64, never bf16)
-    xg = (x.float() if x.dtype == torch.bfloat16 else x).reshape(groups, -1)
-    mean = xg.mean(dim=1, keepdim=True)
-    s = torch.sqrt(torch.mean(torch.square(xg - mean), dim=1) + eps)
-    tile = s.repeat_interleave(n // groups).reshape(n, 1, 1, 1).to(x.dtype)
-    tile = tile.expand(n, 1, x.shape[2], x.shape[3])
+    xf = x.float() if x.dtype == torch.bfloat16 else x
+    if group is not None:
+        if groups != 1:
+            raise ValueError("stat groups under a process group: the merged "
+                             "real+fake pass is off under data parallelism")
+        # the count in xf's dtype: exact up to 2**24 elements (f32)
+        sums = all_reduce_sum(torch.stack([
+            xf.sum(), torch.full((), xf.numel(), dtype=xf.dtype,
+                                 device=xf.device)]))
+        count = sums[1]
+        mean = sums[0] / count
+        s = torch.sqrt(all_reduce_sum(torch.square(xf - mean).sum()) / count
+                       + eps).reshape(1)
+    else:
+        xg = xf.reshape(groups, -1)
+        mean = xg.mean(dim=1, keepdim=True)
+        s = torch.sqrt(torch.mean(torch.square(xg - mean), dim=1) + eps)
+    tile = s.repeat_interleave(n // s.shape[0]).reshape(n, 1, 1, 1)
+    tile = tile.to(x.dtype).expand(n, 1, x.shape[2], x.shape[3])
     return torch.cat([x, tile], dim=1)
 
 

@@ -103,7 +103,7 @@ def _upsample(x, h_axis, w_axis):
     y = torch.empty(_scaled(x.shape, h_axis, w_axis, True), dtype=x.dtype,
                     device=x.device)
     if y.numel():
-        _build.launch(*_kernel("upsample2x", x), x.data_ptr(),
+        _build.launch(*_kernel("upsample2x", x), x.device, x.data_ptr(),
                       y.data_ptr(), n, h, c, w)
     return y
 
@@ -118,7 +118,7 @@ def _pool(x, h_axis, w_axis):
     y = torch.empty(_scaled(x.shape, h_axis, w_axis, False), dtype=x.dtype,
                     device=x.device)
     if y.numel():
-        _build.launch(*_kernel("avgpool2x", x), x.data_ptr(),
+        _build.launch(*_kernel("avgpool2x", x), x.device, x.data_ptr(),
                       y.data_ptr(), n, h, c, w)
     return y
 

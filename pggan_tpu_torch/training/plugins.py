@@ -14,6 +14,13 @@ export, tracing, logging) is a plugin with trigger intervals on the
   the batch size.
 - ``SaverPlugin`` writes the snapshots in the JAX format and the port's
   full training state for an exact resume.
+
+Under data parallelism every rank runs the plugins that steer the run
+(``DepthManager``, ``LRScheduler``, the loss monitors, which read the
+step's all-reduced metrics, and ``AbsoluteTimeMonitor``), and only rank 0
+those that write (``OutputGenerator``, ``MetricsExporter``, the loggers,
+``TraceProfiler``). ``SaverPlugin`` runs on every rank, since it gathers
+each rank's generator state (a collective), and writes on rank 0 alone.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import numpy as np
 import torch
 
 from pggan_tpu_torch.checkpoint import save_snapshot, save_training_state
+from pggan_tpu_torch.parallel import gather_generator_states
 from pggan_tpu_torch.training import schedule
 from pggan_tpu_torch.training.schedule import lod_value, lr_rampup
 
@@ -251,6 +259,8 @@ class SaverPlugin(Plugin):
       (both Adam states, the generator state, the clocks) for an exact
       resume.
     Older files are removed unless ``keep_old_checkpoints``.
+    Under the builder's process group every rank calls it: each gives its
+    generator state, and rank 0 writes the files with all of them.
     """
 
     last_pattern = "network-snapshot-{}-{}.dat"
@@ -265,6 +275,13 @@ class SaverPlugin(Plugin):
     def epoch(self, epoch_index):
         kimg = "{:06}".format(self.trainer.cur_nimg // 1000)
         trainer = self.trainer
+        group = trainer.builder.group
+        rank_generators = None
+        if group is not None:
+            rank_generators = gather_generator_states(
+                trainer.state.generator, group)
+            if group.rank != 0:
+                return
         # the new files first, then delete older ones: a crash mid-save never
         # leaves the directory without a resume point (both writes are
         # write-then-rename)
@@ -285,7 +302,7 @@ class SaverPlugin(Plugin):
         t = trainer.stats.get("time")
         base_time = t.total_seconds() if hasattr(t, "total_seconds") else 0.0
         save_training_state(state_path, trainer.state, trainer.cur_nimg,
-                            trainer.iterations, base_time)
+                            trainer.iterations, base_time, rank_generators)
         written.append(state_path)
         print(f"[SaverPlugin] {state_path} at {trainer.cur_nimg} images",
               flush=True)

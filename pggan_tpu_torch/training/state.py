@@ -14,6 +14,11 @@ the parameters in place. Defaults are the reference's
 count, the learning rate and both bias corrections live in device tensors
 and are computed there, so a step captured into a CUDA graph reads them at
 every replay instead of baking in the values of the step it recorded.
+
+Under data parallelism (``init_state(..., group=...)``) the parameters,
+buffers and Adam states are replicated from rank 0, and each rank's
+generator is seeded ``seed + rank``, as the JAX CLI seeds each process's
+loader (``pggan_tpu/cli/train.py:347``): the ranks draw different latents.
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ import dataclasses
 
 import torch
 from torch import nn
+
+from pggan_tpu_torch.parallel import replicate
 
 
 class Adam:
@@ -77,16 +84,33 @@ class TrainState:
     generator: torch.Generator  # on the device: latents, GP mixing factors
     g_ema: nn.Module | None = None  # EMA of G's parameters, or None
 
+    def tensors(self) -> list:
+        """Every tensor that the ranks of a data-parallel run hold alike:
+        both models' parameters and buffers, both Adam states, the EMA."""
+        out = []
+        for module in (self.G, self.D, self.g_ema):
+            if module is not None:
+                out += [*module.parameters(), *module.buffers()]
+        for opt in (self.g_opt, self.d_opt):
+            out += [*opt.mu, *opt.nu, opt.count]
+        return out
+
 
 def init_state(G: nn.Module, D: nn.Module, seed: int = 0, *,
                g_ema: bool = False, b1: float = 0.0, b2: float = 0.99,
-               eps: float = 1e-8) -> TrainState:
+               eps: float = 1e-8, group=None) -> TrainState:
     """A fresh state on the device of G's parameters; ``g_ema=True`` starts
-    the EMA as a copy of G."""
+    the EMA as a copy of G. With ``group`` (a ``parallel.Group``) the
+    generator is seeded ``seed + rank`` and the rest is replicated from
+    rank 0."""
     device = next(G.parameters()).device
-    return TrainState(
+    rank = 0 if group is None else group.rank
+    state = TrainState(
         G=G, D=D,
         g_opt=Adam(G.parameters(), b1, b2, eps),
         d_opt=Adam(D.parameters(), b1, b2, eps),
-        generator=torch.Generator(device=device).manual_seed(seed),
+        generator=torch.Generator(device=device).manual_seed(seed + rank),
         g_ema=copy.deepcopy(G).requires_grad_(False) if g_ema else None)
+    if group is not None:
+        replicate(state.tensors())
+    return state

@@ -32,6 +32,17 @@ then the GP mixing factors, then G's latents (``steps.py:129-131,152-153``,
 
 TF32 is switched off when the builder is made: cuDNN's convolutions (the
 low-resolution stages) default to it on the card.
+
+With a process group (``group``, a ``parallel.Group``) the step is one
+rank's share of a data-parallel step (``pggan_tpu/training/steps.py:64-71,
+110-119`` under a mesh): it takes this rank's local batch; D takes its
+minibatch-stddev statistic over the global batch; the merged real+fake D
+pass is off, as under the JAX mesh; each model's gradients are averaged
+over the ranks in one flat all-reduce per D repeat and one for G before
+Adam; the four metrics are all-reduced to their global means. Under NCCL the step is graphed as above: its eager first
+call creates the communicator, and the capture records the collectives.
+Gloo cannot be captured, so a gloo group on the card takes the eager route
+(``cuda_graphs=False``; ``True`` raises).
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ import torch
 from pggan_tpu_torch.losses import wgan_gp_D_loss, wgan_gp_G_loss
 from pggan_tpu_torch.ops import _build
 from pggan_tpu_torch.ops.primitives import f32_scalar
+from pggan_tpu_torch.parallel import all_reduce_grads, global_mean
 from pggan_tpu_torch.sampling import disable_tf32
 from pggan_tpu_torch.training.state import TrainState
 
@@ -146,7 +158,12 @@ class _GraphedStep:
         torch.cuda.synchronize()
         before = collections.Counter(_build.CAPTURED)
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, pool=self.builder.graph_pool()):
+        # under a process group NCCL's watchdog thread queries the events
+        # of earlier collectives, which a capture in the global mode forbids
+        # to every thread: hold the capture's checks to this thread
+        mode = "global" if self.builder.group is None else "thread_local"
+        with torch.cuda.graph(graph, pool=self.builder.graph_pool(),
+                              capture_error_mode=mode):
             self.out = self.raw(*args)
         torch.cuda.synchronize()
         self.capture_s = time.perf_counter() - t0
@@ -156,15 +173,21 @@ class _GraphedStep:
 
 class TrainStepBuilder:
     """Train steps for (depth, batch_size, fade), the input prep and the
-    sampling function."""
+    sampling function; ``group`` makes each step one rank's share of a
+    data-parallel step (see the module docstring)."""
 
     def __init__(self, G, D, d_training_repeats: int = 1,
                  iwass_lambda: float = 10.0, iwass_epsilon: float = 0.001,
                  iwass_target: float = 1.0, g_ema_beta: float | None = None,
-                 cuda_graphs: bool = True):
+                 cuda_graphs: bool = True, group=None):
         if G.inference_chain:
             raise ValueError("train with inference_chain=False: the chain "
                              "kernel is forward-only")
+        if (group is not None and cuda_graphs and group.device.type == "cuda"
+                and group.backend == "gloo"):
+            raise ValueError("gloo's collectives cannot be captured into a "
+                             "CUDA graph: a gloo group on the card trains "
+                             "eagerly (cuda_graphs=False), or use nccl")
         self.G, self.D = G, D
         self.d_training_repeats = int(d_training_repeats)
         self.iwass_lambda = float(iwass_lambda)
@@ -173,6 +196,8 @@ class TrainStepBuilder:
         self.g_ema_beta = (None if g_ema_beta is None or g_ema_beta <= 0
                            else float(g_ema_beta))
         self.cuda_graphs = bool(cuda_graphs)
+        self.group = group
+        D.group = group
         self._steps: dict = {}
         self._pool = None
         disable_tf32()
@@ -190,10 +215,12 @@ class TrainStepBuilder:
 
     def step_fn(self, depth: int, batch_size: int, fade: bool = True):
         """``step(state, reals, alpha, lr_d, lr_g, noise=None) -> metrics``:
-        reals (R, B, H, W, C) f32 on the device; alpha and the learning
+        reals (R, B, H, W, C) f32 on the device (under a group B is this
+        rank's local batch, and ``batch_size`` too); alpha and the learning
         rates numbers or 0-d float32 device tensors; the metrics are the
         device scalars ``G_loss``, ``D_loss``, ``D_real``, ``D_fake`` of the
-        last D repeat (``steps.py:177-184``). Updates ``state`` in place.
+        last D repeat (``steps.py:177-184``; global means under a group).
+        Updates ``state`` in place.
         With ``cuda_graphs`` a CUDA state's step is graphed (see the module
         docstring): its metrics are overwritten by its next call."""
         key = (depth, batch_size, fade)
@@ -208,6 +235,7 @@ class TrainStepBuilder:
         lam, drift, target = (self.iwass_lambda, self.iwass_epsilon,
                               self.iwass_target)
         repeats, beta = self.d_training_repeats, self.g_ema_beta
+        group = self.group
 
         def step(state: TrainState, reals, alpha, lr_d, lr_g, noise=None):
             G, D = state.G, state.D
@@ -226,6 +254,9 @@ class TrainStepBuilder:
             def d_pair_fn(x2):
                 return D(x2, depth, alpha, fade, stat_groups=2)
 
+            if group is not None:  # the per-half statistic is per rank
+                d_pair_fn = None
+
             def g_fn(z):
                 return G(z, depth, alpha, fade)
 
@@ -237,6 +268,8 @@ class TrainStepBuilder:
                     d_fn, g_fn, reals[r], z, mix, lam, drift, target,
                     d_pair_fn=d_pair_fn)
                 grads = _grads(d_cost, d_params)
+                if group is not None:
+                    grads = all_reduce_grads(grads, group)
                 state.d_opt.step(grads, lr_d)
 
             z = noise("normal", latent)
@@ -244,14 +277,21 @@ class TrainStepBuilder:
                 g_cost = wgan_gp_G_loss(g_fn, d_fn, z)
                 g_params = list(G.parameters())
                 g_grads = _grads(g_cost, g_params)
+            if group is not None:
+                g_grads = all_reduce_grads(g_grads, group)
             state.g_opt.step(g_grads, lr_g)
 
             if beta is not None:
                 with torch.no_grad():
                     torch._foreach_lerp_(list(state.g_ema.parameters()),
                                          g_params, 1.0 - beta)
-            return {"G_loss": g_cost.detach(), "D_loss": d_cost.detach(),
-                    "D_real": d_real.detach(), "D_fake": d_fake.detach()}
+            metrics = {"G_loss": g_cost.detach(), "D_loss": d_cost.detach(),
+                       "D_real": d_real.detach(), "D_fake": d_fake.detach()}
+            if group is not None:  # one all-reduce of the four
+                means = global_mean(torch.stack(list(metrics.values())),
+                                    group)
+                metrics = dict(zip(metrics, means.unbind()))
+            return metrics
 
         return step
 

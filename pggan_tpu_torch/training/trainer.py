@@ -17,6 +17,14 @@ is already one launch a step, and the host waits on the card at each
 step's input copy. ``steps_per_dispatch`` and ``inflight_budget_mb`` are
 accepted, so that the train CLI takes the JAX CLI's ``--Trainer.*`` flags,
 and have no effect.
+
+Under data parallelism (the builder's ``group``) every rank runs this loop
+on its local batches: the step key holds the local batch, while the image
+clock counts the global batch, local batch x world size x
+``D_training_repeats`` (``pggan_tpu/training/trainer.py:332-334``). The
+schedule plugins derive the stage from that clock alone, so every rank
+calls the same sequence of (depth, batch, fade) steps, as the step's
+collectives need.
 """
 
 from __future__ import annotations
@@ -183,7 +191,9 @@ class Trainer:
     # -- hot loop (reference trainer.py:85-115, one step) ---------------------
     def train(self):
         reals, batch = self._fetch_reals(np.float32(self.alpha))
-        self.cur_nimg += batch * self.D_training_repeats
+        group = self.builder.group
+        world = 1 if group is None else group.world_size
+        self.cur_nimg += batch * world * self.D_training_repeats
 
         # The stable phase (alpha == 1) runs the blend-free graph.
         step = self.builder.step_fn(self.depth, batch,

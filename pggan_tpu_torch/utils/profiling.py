@@ -27,6 +27,9 @@ import torch
 
 # device kernels by source, for the profile (first match wins)
 KERNEL_GROUPS = (
+    # NCCL's kernels; at one rank an averaging all-reduce is its
+    # oneRankReduce kernel, and an in-place sum runs nothing
+    ("NCCL collectives", ("nccl", "oneRankReduce")),
     ("chain kernel", ("chain_kernel", "chain_split")),
     ("conv3x3 kernel", ("conv3x3_kernel", "conv3x3_split")),
     ("conv3x3_dw kernel", ("conv3x3_dw",)),

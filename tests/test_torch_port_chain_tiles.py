@@ -20,6 +20,7 @@ thread, and counts where every vector lands."""
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -336,16 +337,27 @@ class _StubLibrary:
         return _StubFunction(self.log, name)
 
 
+CUDA0 = torch.device("cuda", 0)
+
+
+def _no_guard(monkeypatch):
+    """No card here: the device guard does nothing."""
+    monkeypatch.setattr(_build, "_device_guard",
+                        lambda device: contextlib.nullcontext())
+
+
 def test_launch_resolves_each_entry_point_once(monkeypatch):
     stub = _StubLibrary()
     monkeypatch.setattr(_build, "_lib", stub)
     monkeypatch.setattr(_build, "_ENTRY", {})
-    monkeypatch.setattr(_build, "_current_stream", lambda: 7)
+    monkeypatch.setattr(_build, "_current_stream", lambda device: 7)
     monkeypatch.setattr(_build, "_capturing", lambda: False)
     monkeypatch.setattr(_build, "LAUNCHES", _build.collections.Counter())
+    _no_guard(monkeypatch)
     for _ in range(3):
-        _build.launch("upsample2x", "pggan_upsample2x", 1, 2, 1, 2, 3, 4)
-    _build.launch("avgpool2x", "pggan_avgpool2x", 1, 2, 1, 2, 3, 4)
+        _build.launch("upsample2x", "pggan_upsample2x", CUDA0, 1, 2, 1, 2, 3,
+                      4)
+    _build.launch("avgpool2x", "pggan_avgpool2x", CUDA0, 1, 2, 1, 2, 3, 4)
     kinds = [e[:2] for e in stub.log]
     assert kinds.count(("lookup", "pggan_upsample2x")) == 1
     assert kinds.count(("argtypes", "pggan_upsample2x")) == 1
@@ -368,11 +380,13 @@ def test_failed_launch_raises_and_is_not_counted(monkeypatch):
     failing = _FailingFunction(stub.log, "pggan_upsample2x")
     monkeypatch.setattr(_build, "_lib", stub)
     monkeypatch.setattr(_build, "_ENTRY", {"pggan_upsample2x": failing})
-    monkeypatch.setattr(_build, "_current_stream", lambda: 0)
+    monkeypatch.setattr(_build, "_current_stream", lambda device: 0)
     monkeypatch.setattr(_build, "_capturing", lambda: False)
     monkeypatch.setattr(_build, "LAUNCHES", _build.collections.Counter())
+    _no_guard(monkeypatch)
     with pytest.raises(RuntimeError, match="stub error"):
-        _build.launch("upsample2x", "pggan_upsample2x", 0, 0, 1, 1, 1, 1)
+        _build.launch("upsample2x", "pggan_upsample2x", CUDA0, 0, 0, 1, 1, 1,
+                      1)
     assert not _build.LAUNCHES
 
 
@@ -382,11 +396,12 @@ def test_launch_under_graph_capture_counts_as_captured(monkeypatch):
     stub = _StubLibrary()
     monkeypatch.setattr(_build, "_lib", stub)
     monkeypatch.setattr(_build, "_ENTRY", {})
-    monkeypatch.setattr(_build, "_current_stream", lambda: 7)
+    monkeypatch.setattr(_build, "_current_stream", lambda device: 7)
     monkeypatch.setattr(_build, "LAUNCHES", _build.collections.Counter())
     monkeypatch.setattr(_build, "CAPTURED", _build.collections.Counter())
+    _no_guard(monkeypatch)
     for capturing in (True, True, False):
         monkeypatch.setattr(_build, "_capturing", lambda c=capturing: c)
-        _build.launch("avgpool2x", "pggan_avgpool2x", 1, 2, 1, 2, 3, 4)
+        _build.launch("avgpool2x", "pggan_avgpool2x", CUDA0, 1, 2, 1, 2, 3, 4)
     assert dict(_build.CAPTURED) == {"avgpool2x": 2}
     assert dict(_build.LAUNCHES) == {"avgpool2x": 1}

@@ -97,6 +97,7 @@ class _StubBuilder:
     and returns losses computed from its call count."""
 
     mesh = None
+    group = None
 
     def __init__(self, as_metric):
         self.calls = []

@@ -68,7 +68,7 @@ def test_pinned_gather_overlaps_and_keeps_the_bytes(monkeypatch):
             self.n = Event.count
             Event.count += 1
 
-        def record(self):
+        def record(self, stream=None):
             log.append(("copy", self.n))
 
         def synchronize(self):
@@ -83,6 +83,7 @@ def test_pinned_gather_overlaps_and_keeps_the_bytes(monkeypatch):
         return buffers[-1]
 
     monkeypatch.setattr(sampling.torch.cuda, "Event", Event)
+    monkeypatch.setattr(sampling, "_stream", lambda device: None)
     monkeypatch.setattr(sampling.torch, "empty", host_empty)
     chunks = [torch.randn(3, 2, 2, 1, generator=torch.Generator()
                           .manual_seed(i)) for i in range(4)]
