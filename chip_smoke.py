@@ -280,6 +280,10 @@ class KernelChecks:
         self.host = {}
         self.sums = {per: {k: collections.Counter() for k in KERNELS}
                      for per in ("serve", "train")}
+        # phase 6's conv and weight-gradient calls, one row a shape: the
+        # kernel against the library call, bracketed and back to back
+        self.shape_rows = []
+        self.last = {}
 
     def rand(self, *shape, scale=1.0):
         return self.torch.randn(*shape, device="cuda",
@@ -357,6 +361,7 @@ class KernelChecks:
         for key, v in t.items():
             sums[key] += (count or 1) * v
         log(line)
+        self.last = t
         return t["ms"], t["plain_ms"]
 
     def conv_modes(self, x, w, b, label, timed=True):
@@ -459,10 +464,15 @@ class KernelChecks:
                        lambda: R.upsample_2x(x, 1, 3),
                        lambda: R.upsample2x_plain(x, 1, 3), exact=True,
                        timed=False)
+            # W not a multiple of 4 (padded for TMA), H of no tile
             x = self.rand(2, 37, 24, 45)
             w, b = self.layer(24, 40)
             self.conv_modes(x, w, b, "ragged 24->40 (2, 37, ., 45)",
                             timed=False)
+            # C and K of no tier, K not a multiple of 4
+            w, b = self.layer(5, 7)
+            self.conv_modes(self.rand(2, 37, 5, 44), w, b,
+                            "ragged 5->7 (2, 37, ., 44)", timed=False)
             w1, b1 = self.layer(24, 16)
             w2, b2 = self.layer(16, 8)
             self.chain_modes(x, w1, b1, w2, b2,
@@ -477,6 +487,14 @@ class KernelChecks:
         from pggan_tpu_torch.ops import resample as R
         x, ct = self.rand(2, 37, 5, 45), self.rand(2, 37, 7, 45)
         self.check("conv3x3_dw", "ragged x (2, 37, 5, 45) K 7",
+                   lambda: C.conv3x3_dw(x, ct),
+                   lambda: C.conv3x3_dw_plain(x, ct), tol=DW_TOL,
+                   timed=False,
+                   reference=self.f64(C.conv3x3_dw_plain, x, ct))
+        # W a multiple of 4 but of no tile (H ragged too), C and K of no
+        # tier
+        x, ct = self.rand(2, 37, 5, 44), self.rand(2, 37, 7, 44)
+        self.check("conv3x3_dw", "ragged x (2, 37, 5, 44) K 7",
                    lambda: C.conv3x3_dw(x, ct),
                    lambda: C.conv3x3_dw_plain(x, ct), tol=DW_TOL,
                    timed=False,
@@ -543,6 +561,8 @@ class KernelChecks:
                 self.sums["train"][name]["burst_ms"] += count * burst
                 if name == "upsample2x":
                     self.host[sig] = (t_k, burst)
+                if name in F64_REFERENCE:
+                    self.shape_row(name, sig, count, t_k, burst, args)
                 del args
         torch.cuda.empty_cache()
         for sig, (one, burst) in sorted(
@@ -558,6 +578,26 @@ class KernelChecks:
                 f"back to back {t['burst_ms']:.3f} ms, bound "
                 f"{t['bound_ms']:.3f} ms: {t['bound_ms'] / t['burst_ms']:.1%}"
                 f" of its bound back to back")
+
+    def shape_row(self, name, sig, count, ms, burst, args):
+        """One conv or weight-gradient call of the step: the kernel against
+        its library call (where one computes the same function), each one
+        bracketed call and a call of a back-to-back burst of 20."""
+        lib = library_call(self.torch, name, args)
+        row = {"name": name, "sig": [list(a) if isinstance(a, tuple) else a
+                                     for a in sig],
+               "count": count, "ms": ms, "burst_ms": burst,
+               "library_ms": self.last.get("library_ms"),
+               "library_burst_ms": (burst_ms(self.torch, lib, 20)
+                                    if lib is not None else None),
+               "bound_ms": self.last["bound_ms"]}
+        self.shape_rows.append(row)
+        if lib is not None:
+            log(f"    {name} {sig}: kernel {ms:.4f} ms bracketed, "
+                f"{burst:.4f} back to back; library "
+                f"{row['library_ms']:.4f} / {row['library_burst_ms']:.4f}: "
+                f"kernel / library {burst / row['library_burst_ms']:.2f}x "
+                f"back to back")
 
 
 F64_REFERENCE = ("conv3x3", "conv3x3_act", "conv3x3_act_pn", "conv3x3_dw")
@@ -1896,15 +1936,12 @@ def profile_phase(torch, steps: int = 2, compute_dtype="float32",
 
 def kernel_of(name: str):
     """The kernel mode (a key of KERNELS) of a device kernel's name in a
-    profile, ``"conv3x3 weight split"`` for the conv's weight split, or
-    None for a kernel not in csrc/."""
+    profile, or None for a kernel not in csrc/."""
     import re
-    m = re.search(r"conv3x3_kernel<\s*\d+\s*,\s*(\d)\s*>", name)
+    m = re.search(r"conv3x3_wgmma<\s*\d+\s*,\s*(\d)\s*>", name)
     if m:
         return ("conv3x3", "conv3x3_act", "conv3x3_act_pn")[int(m.group(1))]
-    if "conv3x3_split" in name:
-        return "conv3x3 weight split"
-    if "conv3x3_dw" in name:
+    if "conv3x3_dw" in name:  # both passes
         return "conv3x3_dw"
     for base in ("avgpool2x", "upsample2x"):
         m = re.search(base + r"\w*<([^>]*)>", name)
@@ -3197,6 +3234,12 @@ def main() -> int:
         log(f"  {src}: " + ", ".join(f"{k} {r} regs" + (f" ({s} B spilled)"
                                                      if s else "")
                                      for k, (r, s) in entries.items()))
+    for src in ("conv3x3.cu", "conv3x3_dw.cu"):
+        text = (_build.build_dir() / (src + ".log")).read_text()
+        warnings = sorted({ln.strip() for ln in text.splitlines()
+                           if "warning" in ln.lower()
+                           or "Performance Loss" in ln})
+        log(f"  {src}: ptxas warnings: {warnings or 'none'}")
     disable_tf32()
 
     # phase 3: kernels against their plain versions
@@ -3375,6 +3418,8 @@ def main() -> int:
     # phase D's two-replica serves); by path beside it, with the kernels
     # the runs' graph replays ran
     kernels = []
+    print(json.dumps({"conv_shapes": checks.shape_rows,
+                      "card": card_line}))
     for name, (src, rep) in KERNELS.items():
         per_step = name not in SERVE_ONLY
         t = checks.sums["train" if per_step else "serve"][name]

@@ -12,253 +12,358 @@
 // Bound: 18 C K FLOPs per pixel against 4 (C + K) bytes, so bytes at the
 // 512-1024 px shapes (C, K <= 32) and operations at 128-256 px on the
 // H100. The design:
-// - A GEMM on the tensor cores, per block: M = 9 taps x 8 input channels
-//   (pairs of taps make the 16 rows of an m-tile; the fifth m-tile's second
-//   half is empty), N = a tile of KT output channels (8, 16, 32 or 64),
-//   reduced over the pixels of the block's slice: a run of image rows of
-//   one 128-column tile. A[(u, v, c)][j] is the staged x row i + u - 1 shifted
-//   by v; B[j][k] is the staged cotangent row i. Both are pixel-contiguous
-//   in shared memory, as mma.m16n8k8's row-major A and column-major B want.
-// - Arithmetic: the three-product TF32 split of tf32_mma.cuh with f32
-//   accumulators (f32 accuracy, see there). Each x row is split once, into
-//   hi / lo rows of a four-row ring (rows i - 1, i, i + 1 and the one being
-//   split), because every x value feeds 9 taps; the cotangent is split in
-//   registers, where each fragment feeds all five m-tiles.
-// - Staging: one new x row and one cotangent row per image row, copied
-//   with cp.async into double buffers while the tensor cores work on the
-//   row before; out-of-image elements are zero-filled by the copy. Row
-//   strides of 140 (x, = 12 mod 32) and 132 (ct, = 4 mod 32) floats make
-//   the fragment loads conflict-free; 4-byte copies when W is not a
-//   multiple of 4 or a pointer is unaligned.
-// - Warps: 8, in NG groups over the n-tiles (two n-tiles a warp) times PS
-//   warps that split the tile's columns; each warp keeps 5 x 2 x 4 (5 x 4
-//   at KT = 8) accumulators. At the end the PS warps' sums are added in
-//   warp order through shared memory and the block writes its partial
-//   (9, C, K) tile to a workspace (P, 9, C, K). 53, 61, 78, 112 KB of
-//   shared memory a block at KT = 8, 16, 32, 64; three blocks per SM at
-//   KT = 8, two above (register caps 80 and 128).
-// - Pass 2 (conv3x3_dw_reduce) sums the P partials of each output in a
+// - A GEMM on Hopper's warpgroup MMAs, per work item: M = the 9 taps x CC
+//   input channels stacked, (tap, c) rows in tap-major order, in MT tiles
+//   of 64 rows (CC = 16: 144 rows in 3; CC = 8 for C <= 8: 72 rows in 2);
+//   N = KT output channels (8, 16 or 32; K > 32 in tiles of 32); reduced
+//   over the pixels of the item's slice: a run of image rows of one
+//   128-column tile. A persistent grid, one block an SM, walks the items
+//   (about eight an SM), so that the loads of an item's first rows
+//   overlap the last rows of the one before.
+// - A producer warpgroup (one thread issues the TMA loads; setmaxnreg
+//   gives its registers to the consumers: 56 and 224 a thread)
+//   and two consumer warpgroups, on a ring of stages (as many as fit,
+//   6-12) with full / empty mbarriers that runs on from item to item. An
+//   item's stage q holds x row i0 - 1 + q, a (TW + 36, CC) box from
+//   column j0 - 4 (a box's innermost start must be 16-byte aligned; the
+//   three column taps are three shifts of it), and cotangent row
+//   i0 + q - 2, a (TW + 4, KT) box; rows and columns outside the image
+//   arrive as zeros, which is the padding. Row i reads x rows i - 1, i,
+//   i + 1 from stages q - 2, q - 1, q, which is why a stage is released
+//   two rows after it lands.
+// - Arithmetic: wgmma.m64nKTk8 in TF32 with the three-product split of
+//   tf32_mma.cuh (f32 accuracy), split in integer arithmetic (hopper.cuh's
+//   tf32_split_fast). The cotangent is B, K-major in shared memory: the
+//   pixels are the reduction axis and NHCW keeps them contiguous. A
+//   one-pixel tap shift moves a shared-memory operand by 4 bytes, which a
+//   descriptor cannot express, so A (taps x channels by pixels) comes from
+//   registers, loaded at any shift and split as it is loaded (the next
+//   k-steps' while these run); staged rows of = 4 mod 32 floats make those
+//   loads conflict-free. A warpgroup splits its row's cotangent into hi
+//   and lo B operands (core matrices of 8 channels x 4 pixels).
+// - Each k-step's three products are summed from zero in the tensor cores
+//   (scale-d = 0 at its first) in one of IL = 2, 4, 4 chains an m-tile at
+//   KT = 32, 16, 8, the m-tiles' and chains' MMAs interleaved so that
+//   small-N MMAs do not wait on each other (two k-steps a group at KT =
+//   8). Once a group has completed (wgmma.wait_group 1, the next group
+//   queued) its sums are added to the f32 accumulators with rounded adds
+//   in k-step order: the tensor cores truncate when they add into an
+//   accumulator, and longer chains of a row's k-steps pushed the
+//   difference between a step on two half batches and one on the whole
+//   (chip_smoke.py's phase A) past its bar.
+//   MT x KT / 2 accumulators, IL times as many chain registers and the A
+//   registers of two groups a thread.
+// - Two consumer warpgroups take alternate rows, so that one's MMAs run
+//   while the other splits its next row's cotangent; at an item's end each
+//   writes its sums as a partial (9, CC, KT) tile to a workspace (2 P, 9,
+//   C, K): two slices for each of the P pixel slices.
+// - Pass 2 (conv3x3_dw_reduce) sums the 2 P partials of each output in a
 //   fixed order (8 contiguous runs, then the 8 run sums in order).
 // No atomics, so the result is the same from run to run.
+// W must be a multiple of 4 (TMA's 16-byte strides) and the tensors
+// 16-byte aligned: the wrapper pads a ragged W with zero columns.
 
 #include <cstdint>
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
-#include "tf32_mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kCT = 8;         // input channels per block
-constexpr int kTW = 128;       // columns per block tile
-constexpr int kXR = kTW + 8;   // raw x row: the aligned span [j0-4, j0+TW+4)
-constexpr int kXS = kTW + 12;  // split x row stride (= 12 mod 32)
-constexpr int kCR = kTW + 4;   // cotangent row stride (= 4 mod 32)
-constexpr int kMT = 5;         // m-tiles: 9 taps x 8 channels, taps in pairs
+constexpr int kConsumers = 256;  // two consumer warpgroups
+constexpr int kThreads = kConsumers + 128;  // and the producer warpgroup
+// registers a thread after setmaxnreg: 128 x 56 + 256 x 224 = 384 x 168
+constexpr int kProducerRegs = 56, kConsumerRegs = 224;
+constexpr uint32_t kLbo = 128, kSbo = 256;  // B core matrices (hopper.cuh)
 
-template <int KT>
-struct DwTile {
-  static constexpr int NT = KT / 8;              // n-tiles of the block
-  static constexpr int NW = NT < 2 ? NT : 2;     // n-tiles per warp
-  static constexpr int NG = NT / NW;             // warp groups over n-tiles
-  static constexpr int PS = 8 / NG;              // warps splitting columns
-  static constexpr int KSTEPS = kTW / 8 / PS;    // 8-pixel steps per warp
-  static constexpr int kXRaw = 2 * kCT * kXR;    // [buf][c][kXR]
-  static constexpr int kCtRaw = 2 * KT * kCR;    // [buf][k][kCR]
-  static constexpr int kRing = 4 * kCT * kXS;    // [slot][c][kXS], hi or lo
-  static constexpr size_t kSmemBytes =
-      (kXRaw + kCtRaw + 2 * kRing) * sizeof(float);
-  static_assert(kThreads * NW * 4 <= kXRaw + kCtRaw + 2 * kRing,
-                "the final reduction reuses the staging buffers");
+constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+template <int KT, int CC>
+struct DwPlan {
+  static constexpr int TW = 128;  // columns a block
+  // staged x row from column j0 - 4, floats: TW + 2 columns of halo from
+  // a 16-byte aligned start, = 4 mod 32 for conflict-free A loads
+  static constexpr int XPX = TW + 36;
+  static constexpr int XPC = TW + 4;  // staged cotangent row (= 4 mod 32)
+  static constexpr int KS = TW / 8;  // k-steps a row
+  static constexpr int MT = (9 * CC + 63) / 64;
+  static constexpr int NR = KT / 2;  // accumulators an m-tile, a thread
+  // independent chains of products an m-tile: k-step ks feeds chain
+  // ks % IL, so that small-N MMAs do not wait on each other
+  static constexpr int IL = KT == 32 ? 2 : 4;
+  static constexpr int kXFloats = CC * XPX, kCtFloats = KT * XPC;
+  static constexpr int kStageBytes = round_up((kXFloats + kCtFloats) * 4,
+                                             128);  // TMA: 128-byte aligned
+  static constexpr int kBFloats = KS * 8 * KT;  // hi or lo, a warpgroup
+  // stages: as many as the H100's 227 KB a block holds beside the four B
+  // buffers (at most 12), so that TMA's latency hides behind the rows the
+  // two warpgroups hold
+  static constexpr int kMaxStages =
+      (232448 - 128 - 4 * kBFloats * 4 - 2 * 12 * 8) / kStageBytes;
+  static constexpr int kStages = kMaxStages < 12 ? kMaxStages : 12;
+  static_assert(kStages >= 5, "two warpgroups hold up to four stages");
+  static constexpr int kBarOffset =
+      kStages * kStageBytes + 4 * kBFloats * 4;
+  // + 128 to align the base, + the barriers
+  static constexpr size_t kSmemBytes = kBarOffset + 2 * kStages * 8 + 128;
+  // k-steps a group of MMAs (one wait each): two at KT = 8, whose MMAs
+  // are short
+  static constexpr int KG = KT == 8 ? 2 : 1;
 };
 
-template <int KT>
-__global__ void __launch_bounds__(kThreads, KT == 8 ? 3 : 2)
-conv3x3_dw_partial(const float* __restrict__ x, const float* __restrict__ ct,
-                   float* __restrict__ ws, int H, int C, int W, int K,
-                   int rows_per_block, int row_chunks, int col_tiles,
-                   int vec) {
-  using T = DwTile<KT>;
-  constexpr int NW = T::NW, PS = T::PS;
-  extern __shared__ __align__(16) float smem[];
-  float* xraw = smem;
-  float* ctraw = xraw + T::kXRaw;
-  float* xhi = ctraw + T::kCtRaw;
-  float* xlo = xhi + T::kRing;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int ng = warp / PS, ps = warp % PS;
-  const int p = blockIdx.x;
-  const int j0 = (p % col_tiles) * kTW;
-  const int chunk = (p / col_tiles) % row_chunks;
-  const int n = p / col_tiles / row_chunks;
-  const int i0 = chunk * rows_per_block;
-  const int i1 = min(H, i0 + rows_per_block);
-  const int c0 = blockIdx.y * kCT, k0 = blockIdx.z * KT;
-
-  // x row i of channels c0.. (zeros outside the image) into xraw[buf]
-  auto issue_x = [&](int i, int buf) {
-    float* dst = xraw + buf * kCT * kXR;
-    const bool row_ok = i >= 0 && i < H;
-    const float* xr = x + ((long long)n * H + i) * C * W;
-    if (vec) {
-      constexpr int V = kXR / 4;
-      for (int e = tid; e < kCT * V; e += kThreads) {
-        const int q = e % V, c = e / V;
-        const int gc = j0 - 4 + 4 * q;
-        const bool ok = row_ok && c0 + c < C && gc >= 0 && gc < W;
-        pggan::cp_async16(dst + c * kXR + 4 * q,
-                          ok ? xr + (long long)(c0 + c) * W + gc : x, ok);
-      }
-    } else {
-      for (int e = tid; e < kCT * kXR; e += kThreads) {
-        const int q = e % kXR, c = e / kXR;
-        const int gc = j0 - 4 + q;
-        const bool ok = row_ok && c0 + c < C && gc >= 0 && gc < W;
-        pggan::cp_async4(dst + e, ok ? xr + (long long)(c0 + c) * W + gc : x,
-                         ok);
-      }
-    }
+template <int KT, int CC>
+__global__ void __launch_bounds__(kThreads, 1)
+conv3x3_dw_wgmma(const __grid_constant__ CUtensorMap xmap,
+                 const __grid_constant__ CUtensorMap ctmap,
+                 float* __restrict__ ws, int H, int C, int K,
+                 int rows_per_block, int row_chunks, int col_tiles,
+                 int c_chunks, int items) {
+  using P = DwPlan<KT, CC>;
+  constexpr int MT = P::MT, NR = P::NR, XPX = P::XPX, XPC = P::XPC;
+  constexpr int kStages = P::kStages, KG = P::KG;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((128 - (pggan::smem_addr(smem_raw) & 127)) & 127);
+  auto xst = [&](int s) {
+    return reinterpret_cast<float*>(smem + s * P::kStageBytes);
   };
-  // cotangent row i of channels k0.. into ctraw[buf]
-  auto issue_ct = [&](int i, int buf) {
-    float* dst = ctraw + buf * KT * kCR;
-    const float* cr = ct + ((long long)n * H + i) * K * W;
-    if (vec) {
-      constexpr int V = kTW / 4;
-      for (int e = tid; e < KT * V; e += kThreads) {
-        const int q = e % V, kl = e / V;
-        const int gc = j0 + 4 * q;
-        const bool ok = k0 + kl < K && gc < W;
-        pggan::cp_async16(dst + kl * kCR + 4 * q,
-                          ok ? cr + (long long)(k0 + kl) * W + gc : ct, ok);
-      }
-    } else {
-      for (int e = tid; e < KT * kTW; e += kThreads) {
-        const int q = e % kTW, kl = e / kTW;
-        const int gc = j0 + q;
-        const bool ok = k0 + kl < K && gc < W;
-        pggan::cp_async4(dst + kl * kCR + q,
-                         ok ? cr + (long long)(k0 + kl) * W + gc : ct, ok);
-      }
-    }
+  auto ctst = [&](int s) { return xst(s) + P::kXFloats; };
+  auto bsplit = [&](int wg, int lo) {
+    return reinterpret_cast<float*>(smem + kStages * P::kStageBytes) +
+           (2 * wg + lo) * P::kBFloats;
   };
-  // the landed x row in xraw[buf] -> hi / lo ring slot
-  auto split_x = [&](int buf, int slot) {
-    const float* src = xraw + buf * kCT * kXR;
-    float* hi = xhi + slot * kCT * kXS;
-    float* lo = xlo + slot * kCT * kXS;
-    for (int e = tid; e < kCT * kXR; e += kThreads) {
-      const int s = e % kXR, c = e / kXR;
-      uint32_t h, l;
-      pggan::tf32_split(src[e], h, l);
-      hi[c * kXS + s] = __uint_as_float(h);
-      lo[c * kXS + s] = __uint_as_float(l);
-    }
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::kBarOffset);
+  uint64_t* empty = full + kStages;
+  // item it: pixel slice p (image n, rows i0 .., columns j0 ..), channel
+  // chunk c0, k tile k0; its steps (rows + 2: x rows i0 - 1 .. i0 + rows)
+  struct Item {
+    int p, n, i0, j0, c0, k0, steps;
+  };
+  auto item = [&](int it) {
+    Item m;
+    m.k0 = it % ((K + KT - 1) / KT) * KT;
+    int rest = it / ((K + KT - 1) / KT);
+    m.c0 = rest % c_chunks * CC;
+    m.p = rest / c_chunks;
+    m.j0 = m.p % col_tiles * P::TW;
+    m.i0 = m.p / col_tiles % row_chunks * rows_per_block;
+    m.n = m.p / col_tiles / row_chunks;
+    m.steps = min(H - m.i0, rows_per_block) + 2;
+    return m;
   };
 
-  float acc[kMT][NW][4];
-#pragma unroll
-  for (int q = 0; q < kMT; ++q)
-#pragma unroll
-    for (int j = 0; j < NW; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[q][j][e] = 0.f;
-
-  // prologue: rows i0 - 1 and i0 into the ring, then x row i0 + 1 and
-  // cotangent row i0 in flight
-  issue_x(i0 - 1, 0);
-  issue_x(i0, 1);
-  pggan::cp_async_commit();
-  pggan::cp_async_wait_all();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      pggan::mbar_init(&full[s], 1);
+      pggan::mbar_init(&empty[s], kConsumers / 32);
+    }
+    pggan::fence_barrier_init();
+  }
   __syncthreads();
-  split_x(0, (i0 - 1) & 3);
-  split_x(1, i0 & 3);
-  __syncthreads();
-  issue_x(i0 + 1, (i0 + 1) & 1);
-  issue_ct(i0, i0 & 1);
-  pggan::cp_async_commit();
 
-  for (int i = i0; i < i1; ++i) {
-    pggan::cp_async_wait_all();
-    __syncthreads();  // x row i + 1 and ct row i landed; row i - 1 is done
-    split_x((i + 1) & 1, (i + 1) & 3);
-    if (i + 1 < i1) {
-      issue_x(i + 2, i & 1);
-      issue_ct(i + 1, (i + 1) & 1);
-    }
-    pggan::cp_async_commit();
-    __syncthreads();  // the split row is visible
-
-    // B (j, k) = ct row i: b0 (pixel t, k = g), b1 (pixel t + 4, k = g)
-    const float* cb =
-        ctraw + (i & 1) * KT * kCR + (ng * NW * 8 + g) * kCR + t;
-#pragma unroll
-    for (int s = 0; s < T::KSTEPS; ++s) {
-      const int jj = (ps * T::KSTEPS + s) * 8;  // first pixel of the step
-      uint32_t bh[NW][2], bl[NW][2];
-#pragma unroll
-      for (int j = 0; j < NW; ++j) {
-        pggan::tf32_split(cb[j * 8 * kCR + jj], bh[j][0], bl[j][0]);
-        pggan::tf32_split(cb[j * 8 * kCR + jj + 4], bh[j][1], bl[j][1]);
-      }
-#pragma unroll
-      for (int q = 0; q < kMT; ++q) {
-        // A rows g (tap 2q) and g + 8 (tap 2q + 1), channel c0 + g; pixel
-        // jj + t (a0, a1) and jj + t + 4 (a2, a3); ring column s holds
-        // image column j0 - 4 + s
-        uint32_t ah[4], al[4];
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int tap = 2 * q + half;
-          if (tap < 9) {
-            const int u = tap / 3, v = tap % 3;
-            const int off =
-                (((i + u - 1) & 3) * kCT + g) * kXS + jj + t + v + 3;
-            ah[half] = __float_as_uint(xhi[off]);
-            al[half] = __float_as_uint(xlo[off]);
-            ah[half + 2] = __float_as_uint(xhi[off + 4]);
-            al[half + 2] = __float_as_uint(xlo[off + 4]);
-          } else {
-            ah[half] = al[half] = ah[half + 2] = al[half + 2] = 0u;
-          }
+  if (warp >= kConsumers / 32) {  // the producer warpgroup: one thread
+    pggan::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumers) {
+      int Q = 0;  // stages filled so far, over all of this block's items
+      for (int it = blockIdx.x; it < items; it += gridDim.x) {
+        const Item m = item(it);
+        for (int q = 0; q < m.steps; ++q, ++Q) {
+          const int s = Q % kStages;
+          pggan::mbar_wait(&empty[s], ((Q / kStages) & 1) ^ 1);
+          pggan::mbar_arrive_expect_tx(
+              &full[s], (P::kXFloats + (q >= 2 ? P::kCtFloats : 0)) * 4);
+          pggan::tma_load_4d(xst(s), &xmap, &full[s], m.j0 - 4, m.c0,
+                             m.i0 - 1 + q, m.n);
+          if (q >= 2)
+            pggan::tma_load_4d(ctst(s), &ctmap, &full[s], m.j0, m.k0,
+                               m.i0 + q - 2, m.n);
         }
-#pragma unroll
-        for (int j = 0; j < NW; ++j)
-          pggan::mma_3xtf32(acc[q][j], ah, al, bh[j], bl[j]);
       }
     }
+    return;
   }
 
-  // Sum the PS column-splitting warps of each group in warp order, one
-  // m-tile at a time, and write the block's partial tile.
-  // acc[q][j][e]: tap 2q + e / 2, channel c0 + g,
-  // output channel k0 + (ng NW + j) 8 + 2t + e % 2
-  float* red = smem;  // [warp][lane][NW * 4]
-  float* part = ws + (long long)p * 9 * C * K;
+  // the consumer warpgroups: of an item, warpgroup wg takes the rows
+  // i0 + wg, i0 + wg + 2, ... (steps q = 2 + wg, 4 + wg, ...), so that one
+  // warpgroup's MMAs run while the other splits its next row. A
+  // warpgroup releases each stage of an item once, when no later step of
+  // its own reads it (after step q: the stages before q).
+  pggan::setmaxnreg_inc<kConsumerRegs>();
+  constexpr int IL = P::IL;
+  const int wg = warp / 4, wl = warp % 4, wtid = threadIdx.x % 128;
+  const int g = lane / 4, t = lane % 4;
+  // this thread's A rows 64 m + 16 wl + g + 8 hf: tap (u, v), channel c;
+  // the x element of pixel column j0 + jj for it is staged at
+  // xst(row u) + off + jj (staged column sc holds image column j0 - 4 +
+  // sc). Rows past the 9 CC taps x channels read row 9 CC - 1's x: their
+  // sums are never stored, and real operands keep ptxas from serializing
+  // the MMAs over constant registers.
+  int tap_u[MT][2], off[MT][2];
 #pragma unroll
-  for (int q = 0; q < kMT; ++q) {
-    __syncthreads();
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int j = 0; j < NW; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) red[(tid * NW + j) * 4 + e] = acc[q][j][e];
-    __syncthreads();
-    for (int o = tid; o < T::NG * 32 * NW * 4; o += kThreads) {
-      const int e4 = o % (NW * 4);
-      const int ln = (o / (NW * 4)) % 32, gg = o / (NW * 4 * 32);
-      float sum = 0.f;
-      for (int w = 0; w < PS; ++w)
-        sum += red[((gg * PS + w) * 32 + ln) * NW * 4 + e4];
-      const int j = e4 / 4, e = e4 % 4;
-      const int tap = 2 * q + (e >> 1);
-      const int c = c0 + (ln >> 2);
-      const int k = k0 + (gg * NW + j) * 8 + 2 * (ln & 3) + (e & 1);
-      if (tap < 9 && c < C && k < K)
-        part[((long long)tap * C + c) * K + k] = sum;
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = min(64 * m + 16 * wl + g + 8 * hf, 9 * CC - 1);
+      const int tap = row / CC, c = row % CC;
+      tap_u[m][hf] = tap / 3;
+      off[m][hf] = c * XPX + tap % 3 + 3;
     }
+  float* bh = bsplit(wg, 0);
+  float* bl = bsplit(wg, 1);
+  auto release = [&](int from, int to) {  // stages [from, to) of all
+    __syncwarp();
+    if (lane == 0)
+      for (int S = from; S < to; ++S) pggan::mbar_arrive(&empty[S % kStages]);
+  };
+
+  int Q0 = 0;  // the block's stage count at this item's first step
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const Item mi = item(it);
+    float acc[MT][NR], prod[IL][MT][NR];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int e = 0; e < NR; ++e) {
+        acc[m][e] = 0.f;
+#pragma unroll
+        for (int c = 0; c < IL; ++c) prod[c][m][e] = 0.f;
+      }
+    int freed = 0;  // the item's stages this warpgroup has released
+
+    for (int q = 2 + wg; q < mi.steps; q += 2) {
+      const int Q = Q0 + q, s = Q % kStages;
+      // x rows i - 1, i, i + 1 of this row i are stages Q - 2, Q - 1, Q;
+      // the row's cotangent is stage Q's
+      pggan::mbar_wait(&full[(Q - 2) % kStages], ((Q - 2) / kStages) & 1);
+      pggan::mbar_wait(&full[(Q - 1) % kStages], ((Q - 1) / kStages) & 1);
+      pggan::mbar_wait(&full[s], (Q / kStages) & 1);
+      // the cotangent row -> hi / lo B[ks][k / 8][j / 4 % 2][k % 8][j % 4];
+      // this warpgroup's MMAs of its previous row have completed
+      {
+        // eight loads in flight before their splits are stored
+        const float* raw = ctst(s);
+        static_assert(P::kBFloats % (8 * 128) == 0, "whole batches");
+        for (int e0 = wtid; e0 < P::kBFloats; e0 += 8 * 128) {
+          float v[8];
+#pragma unroll
+          for (int b8 = 0; b8 < 8; ++b8) {
+            const int e = e0 + 128 * b8;
+            const int j4 = e & 3, k8 = (e >> 2) & 7, half = (e >> 5) & 1;
+            const int blk = e >> 6;  // ks * (KT / 8) + k / 8
+            const int k = blk % (KT / 8) * 8 + k8, ks = blk / (KT / 8);
+            v[b8] = raw[k * XPC + ks * 8 + half * 4 + j4];
+          }
+#pragma unroll
+          for (int b8 = 0; b8 < 8; ++b8) {
+            uint32_t h, l;
+            pggan::tf32_split_fast(v[b8], h, l);
+            bh[e0 + 128 * b8] = __uint_as_float(h);
+            bl[e0 + 128 * b8] = __uint_as_float(l);
+          }
+        }
+      }
+      pggan::fence_proxy_async();
+      pggan::named_barrier(1 + wg, 128);
+
+      const float* xrow[3] = {xst((Q - 2) % kStages), xst((Q - 1) % kStages),
+                              xst(s)};
+      // A of k-steps kg KG .. kg KG + KG - 1 for every m-tile, in register
+      // set kg % 2
+      uint32_t ah[2][KG][MT][4], al[2][KG][MT][4];
+      auto load_a = [&](int kg, int set) {
+#pragma unroll
+        for (int k2 = 0; k2 < KG; ++k2) {
+          const int jj = (kg * KG + k2) * 8 + t;  // pixel column j - j0
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              uint32_t* h = ah[set][k2][m];
+              uint32_t* l = al[set][k2][m];
+              const int u = tap_u[m][hf];
+              const float* xa =
+                  (u == 0 ? xrow[0] : u == 1 ? xrow[1] : xrow[2]) +
+                  off[m][hf] + jj;
+              pggan::tf32_split_fast(xa[0], h[hf], l[hf]);
+              pggan::tf32_split_fast(xa[4], h[hf + 2], l[hf + 2]);
+            }
+        }
+      };
+      // the row's k-steps: each k-step's three products summed from zero
+      // in the tensor cores (scale-d = 0 at its first), in chain ks % IL,
+      // the m-tiles' and chains' MMAs interleaved; once a group of k-steps
+      // has completed (wgmma.wait_group 1, the next group's MMAs queued),
+      // its sums are added to the accumulators with rounded f32 adds, in
+      // k-step order, and its A registers take the group after next
+      load_a(0, 0);
+      auto add_group = [&](int kg) {
+#pragma unroll
+        for (int k2 = 0; k2 < KG; ++k2) {
+          const int c = (kg * KG + k2) % IL;
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            pggan::fence_operand(prod[c][m]);
+#pragma unroll
+            for (int e = 0; e < NR; ++e) acc[m][e] += prod[c][m][e];
+          }
+        }
+      };
+#pragma unroll
+      for (int kg = 0; kg < P::KS / KG; ++kg) {
+        const int set = kg & 1;
+#pragma unroll
+        for (int k2 = 0; k2 < KG; ++k2)
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+            pggan::fence_operand(prod[(kg * KG + k2) % IL][m]);
+        pggan::wgmma_fence();
+#pragma unroll
+        for (int k2 = 0; k2 < KG; ++k2) {
+          const int ks = kg * KG + k2, c = ks % IL;
+          const uint64_t dh = pggan::wgmma_desc(bh + ks * 8 * KT, kLbo, kSbo);
+          const uint64_t dl = pggan::wgmma_desc(bl + ks * 8 * KT, kLbo, kSbo);
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+            pggan::Wgmma<KT>::mma(prod[c][m], al[set][k2][m], dh, 0);
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+            pggan::Wgmma<KT>::mma(prod[c][m], ah[set][k2][m], dl, 1);
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+            pggan::Wgmma<KT>::mma(prod[c][m], ah[set][k2][m], dh, 1);
+        }
+        pggan::wgmma_commit();
+        if (kg > 0) {
+          pggan::wgmma_wait<1>();
+          add_group(kg - 1);
+        }
+        if (kg + 1 < P::KS / KG) load_a(kg + 1, set ^ 1);
+      }
+      pggan::wgmma_wait<0>();
+      add_group(P::KS / KG - 1);
+      release(Q0 + freed, Q);
+      freed = q;
+    }
+    release(Q0 + freed, Q0 + mi.steps);
+
+    // each warpgroup's sums, a partial (9, CC, KT) tile of its own: slice
+    // 2 p + wg of the workspace. acc[m][4j + 2h + e]: row 64 m + 16 wl +
+    // g + 8h (tap, c0 + c), output channel k0 + 8j + 2t + e
+    float* part = ws + (2LL * mi.p + wg) * 9 * C * K;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int e = 0; e < NR; ++e) {
+        const int row = 64 * m + 16 * wl + g + 8 * ((e >> 1) & 1);
+        const int c = mi.c0 + row % CC;
+        const int k = mi.k0 + (e >> 2) * 8 + 2 * t + (e & 1);
+        if (row < 9 * CC && c < C && k < K)
+          part[((long long)(row / CC) * C + c) * K + k] = acc[m][e];
+      }
+    Q0 += mi.steps;
   }
 }
 
@@ -287,62 +392,81 @@ conv3x3_dw_reduce(const float* __restrict__ ws, float* __restrict__ dw,
   }
 }
 
-template <int KT>
+template <int KT, int CC>
 int launch_partial(const float* x, const float* ct, float* ws, int N, int H,
                    int C, int W, int K, int rows_per_block, int row_chunks,
                    int col_tiles, cudaStream_t s) {
-  using T = DwTile<KT>;
-  auto kern = conv3x3_dw_partial<KT>;
+  using P = DwPlan<KT, CC>;
+  CUtensorMap xmap, ctmap;
+  const uint64_t xdims[4] = {(uint64_t)W, (uint64_t)C, (uint64_t)H,
+                             (uint64_t)N};
+  const uint32_t xbox[4] = {P::XPX, CC, 1, 1};
+  int e = pggan::host::tensor_map_f32(&xmap, x, 4, xdims, xbox);
+  if (e != 0) return e;
+  const uint64_t cdims[4] = {(uint64_t)W, (uint64_t)K, (uint64_t)H,
+                             (uint64_t)N};
+  const uint32_t cbox[4] = {P::XPC, KT, 1, 1};
+  e = pggan::host::tensor_map_f32(&ctmap, ct, 4, cdims, cbox);
+  if (e != 0) return e;
+  auto kern = conv3x3_dw_wgmma<KT, CC>;
   // above 48 KB only as opted-in dynamic shared memory
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmemBytes);
-  if (e != cudaSuccess) return (int)e;
-  const int vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(ct) % 16 == 0;
-  dim3 grid(N * row_chunks * col_tiles, (C + kCT - 1) / kCT,
-            (K + KT - 1) / KT);
-  kern<<<grid, kThreads, T::kSmemBytes, s>>>(x, ct, ws, H, C, W, K,
-                                             rows_per_block, row_chunks,
-                                             col_tiles, vec);
+  cudaError_t ce = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::kSmemBytes);
+  if (ce != cudaSuccess) return (int)ce;
+  int dev, sms;
+  if ((ce = cudaGetDevice(&dev)) != cudaSuccess) return (int)ce;
+  ce = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (ce != cudaSuccess) return (int)ce;
+  const int c_chunks = (C + CC - 1) / CC;
+  const int items =
+      N * row_chunks * col_tiles * c_chunks * ((K + KT - 1) / KT);
+  kern<<<items < sms ? items : sms, kThreads, P::kSmemBytes, s>>>(
+      xmap, ctmap, ws, H, C, K, rows_per_block, row_chunks, col_tiles,
+      c_chunks, items);
+  return (int)cudaGetLastError();
+}
+
+// pass 2: dw[e] = sum over p of ws[p][e], e < E = 9 C K, in a fixed order
+int reduce(const float* ws, float* dw, int P, long long E, cudaStream_t s) {
+  const long long blocks = (E + kRedE - 1) / kRedE;
+  conv3x3_dw_reduce<<<(unsigned)blocks, kRedE * kRedG, 0, s>>>(ws, dw, P, E);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x (N, H, C, W); ct (N, H, K, W); ws (P, 9, C, K) scratch with
+// x (N, H, C, W); ct (N, H, K, W); ws (2 P, 9, C, K) scratch with
 // P = N * row_chunks * col_tiles pixel slices (row_chunks runs of
 // rows_per_block image rows, col_tiles = ceil(W / 128)); dw (3, 3, C, K).
-// KT is the k tile (8, 16, 32 or 64).
+// KT is the k tile (8, 16 or 32), CC
+// the channel chunk (8 for C <= 8, else 16). W a multiple of 4, x and ct
+// 16-byte aligned.
 extern "C" int pggan_conv3x3_dw(const float* x, const float* ct, float* ws,
                                 float* dw, int N, int H, int C, int W, int K,
-                                int KT, int rows_per_block, int row_chunks,
-                                int col_tiles, void* stream) {
+                                int KT, int CC, int rows_per_block,
+                                int row_chunks, int col_tiles, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (W % 4 != 0 ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(ct)) % 16)
+    return (int)cudaErrorInvalidValue;
   int e;
-  switch (KT) {
-    case 8:
-      e = launch_partial<8>(x, ct, ws, N, H, C, W, K, rows_per_block,
-                            row_chunks, col_tiles, s);
-      break;
-    case 16:
-      e = launch_partial<16>(x, ct, ws, N, H, C, W, K, rows_per_block,
-                             row_chunks, col_tiles, s);
-      break;
-    case 32:
-      e = launch_partial<32>(x, ct, ws, N, H, C, W, K, rows_per_block,
-                             row_chunks, col_tiles, s);
-      break;
-    case 64:
-      e = launch_partial<64>(x, ct, ws, N, H, C, W, K, rows_per_block,
-                             row_chunks, col_tiles, s);
-      break;
+  const int a = KT * 100 + CC;
+  switch (a) {
+#define PGGAN_DW_CASE(kt, cc)                                              \
+  case kt * 100 + cc:                                                      \
+    e = launch_partial<kt, cc>(x, ct, ws, N, H, C, W, K, rows_per_block,   \
+                               row_chunks, col_tiles, s);                  \
+    break;
+    PGGAN_DW_CASE(8, 8)
+    PGGAN_DW_CASE(8, 16)
+    PGGAN_DW_CASE(16, 8)
+    PGGAN_DW_CASE(16, 16)
+    PGGAN_DW_CASE(32, 8)
+    PGGAN_DW_CASE(32, 16)
+#undef PGGAN_DW_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }
   if (e != 0) return e;
-  const int P = N * row_chunks * col_tiles;
-  const long long E = 9LL * C * K;
-  const long long blocks = (E + kRedE - 1) / kRedE;
-  conv3x3_dw_reduce<<<(unsigned)blocks, kRedE * kRedG, 0, s>>>(ws, dw, P, E);
-  return (int)cudaGetLastError();
+  return reduce(ws, dw, 2 * N * row_chunks * col_tiles, 9LL * C * K, s);
 }

@@ -33,19 +33,25 @@ gradient either: the gradient penalty's inner ``autograd.grad`` asks only
 for the input gradient, and the weights' second-order terms come from the
 graph of that input gradient, not from these skipped terms.
 
-Both kernels run on the H100's tensor cores: ``mma.sync`` m16n8k8 in TF32
-with each f32 operand split into two TF32 values, a = hi + lo, and each
-product taken as hi hi + hi lo + lo hi (``csrc/tf32_mma.cuh``). That keeps
-f32 accuracy (one TF32 product does not), at a third of the card's 495
-TFLOP/s TF32 rate where f32 FMAs give 67; the operands are staged with
-double-buffered ``cp.async`` copies. The conv is an implicit GEMM of
-output pixels by output channels, bound by operations at 128-256 px and by
-bytes at 512-1024 px; more than 64 output channels (no pixelnorm) run as
-groups of 64 in one launch's grid (output channels are independent, so
-this is exact), and with pixelnorm a pixel's K outputs stay in one quad of
-lanes. The weight gradient is the same GEMM transposed (taps x input
-channels by output channels, reduced over pixels), split over pixel slices
-in two deterministic passes. Design notes in the sources.
+Both kernels run on Hopper's warpgroup MMAs (``wgmma``) in TF32, with each
+f32 operand split into two TF32 values, a = hi + lo, and each product taken
+as hi hi + hi lo + lo hi (``csrc/tf32_mma.cuh``): f32 accuracy (one TF32
+product does not), at a third of the card's 495 TFLOP/s TF32 rate where
+f32 FMAs give 67. Their tiles arrive by TMA on rings of ``mbarrier``
+stages filled by a producer warpgroup (``csrc/hopper.cuh``), whose zero fill
+outside the tensor is the convolution's padding. The conv is an implicit
+GEMM of output pixels by output channels on a persistent grid, bound by
+operations at 128-256 px and by bytes at 512-1024 px, the weights split
+inside the kernel; more than 64 output channels (no pixelnorm) run as
+groups of 64 in one launch (output channels are independent, so this is
+exact), and with pixelnorm a pixel's K outputs stay in one quad of lanes.
+The weight gradient is the transposed GEMM (taps x input channels by
+output channels, reduced over pixels), split over pixel slices in two
+deterministic passes. TMA wants 16-byte strides, so a W (or the conv's K)
+that is not a multiple of 4 reaches the kernels padded with zeros (exact:
+the conv's padding is zero, zero weights add nothing, and zero columns
+add nothing to the weight gradient), and the padded columns of the output
+are sliced off; no step shape needs it. Design notes in the sources.
 """
 
 from __future__ import annotations
@@ -60,9 +66,11 @@ from pggan_tpu_torch.ops import _build
 
 K_TIERS = (8, 16, 32, 64)
 _EPI_NONE, _EPI_ACT, _EPI_ACT_PN = 0, 1, 2
-# blocks the dw kernel's first pass aims for: 8 per SM of the H100
+# work items the dw kernel's first pass aims for: 8 per SM of the H100
+# (csrc/conv3x3_dw.cu walks them on a persistent grid, one block an SM);
+# short runs of rows keep each partial's f32 sum short
 _DW_TARGET_BLOCKS = 8 * 132
-_DW_COLS = 128  # columns of one dw block tile (csrc/conv3x3_dw.cu kTW)
+_DW_COLS = 128  # columns of a dw tile (csrc/conv3x3_dw.cu)
 _DW_MIN_ROWS = 8  # image rows a dw block walks, at least
 
 
@@ -84,6 +92,18 @@ def supported(x_nhcw_shape, w_shape, pixelnorm: bool = False) -> bool:
     kh, kw, wc, k = w_shape
     k_max = K_TIERS[-1] if pixelnorm else math.inf
     return (kh, kw) == (3, 3) and wc == c and 1 <= k <= k_max
+
+
+def tma_operand(t: torch.Tensor) -> torch.Tensor:
+    """A tensor as the kernels' TMA loads take it: its last axis (W of an
+    NHCW tensor, K of the weights) a multiple of 4 (TMA's global strides
+    are multiples of 16 bytes), padded with zeros where it is not, and the
+    data 16-byte aligned, copied where it is not. Every tensor of the step
+    is taken as it is."""
+    pad = -t.shape[-1] % 4
+    if pad:
+        return F.pad(t, (0, pad))
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def flip_io(w: torch.Tensor) -> torch.Tensor:
@@ -152,25 +172,27 @@ def _check(x, w, b=None, pixelnorm=False):
 
 
 def _launch(name, epi, x, w, b, slope, eps):
-    """One launch; more than 64 output channels run as groups of 64 in its
-    grid (output channels are independent, so this is exact)."""
+    """One launch; more than 64 output channels run as groups of 64 in it
+    (output channels are independent, so this is exact). A ragged W or K
+    runs padded (``tma_operand``): the padded columns' outputs are sliced
+    off, the zero columns are the padding of the last real column, and the
+    zero weights' channels are never stored."""
     n, h, c, wd = x.shape
     k = w.shape[3]
-    y = torch.empty((n, h, k, wd), dtype=x.dtype, device=x.device)
-    r = (torch.empty((n, h, wd), dtype=x.dtype, device=x.device)
+    x, w = tma_operand(x), tma_operand(w)
+    wp = x.shape[3]
+    y = torch.empty((n, h, k, wp), dtype=x.dtype, device=x.device)
+    r = (torch.empty((n, h, wp), dtype=x.dtype, device=x.device)
          if epi == _EPI_ACT_PN else None)
-    if not y.numel():
-        return y, r
-    kt = k_tier(min(k, K_TIERS[-1]))
-    # scratch for the split weights: (groups, 9, C rounded up to 8, KT + 4,
-    # 2)
-    ws = torch.empty(-(-k // kt) * 9 * -(-c // 8) * 8 * (kt + 4) * 2,
-                     dtype=x.dtype, device=x.device)
-    _build.launch(name, "pggan_conv3x3", x.device, x.data_ptr(),
-                  w.data_ptr(), None if b is None else b.data_ptr(),
-                  y.data_ptr(),
-                  None if r is None else r.data_ptr(), ws.data_ptr(),
-                  n, h, c, wd, k, kt, epi, float(slope), float(eps))
+    if y.numel():
+        _build.launch(name, "pggan_conv3x3", x.device, x.data_ptr(),
+                      w.data_ptr(), None if b is None else b.data_ptr(),
+                      y.data_ptr(), None if r is None else r.data_ptr(), n,
+                      h, c, wp, k, k_tier(min(k, K_TIERS[-1])), epi,
+                      float(slope), float(eps))
+    if wp != wd:
+        y = y[..., :wd].contiguous()
+        r = None if r is None else r[..., :wd].contiguous()
     return y, r
 
 
@@ -195,18 +217,22 @@ def _act_pn_fwd(x, w, b, slope, eps):
     return _launch("conv3x3_act_pn", _EPI_ACT_PN, x, w, b, slope, eps)
 
 
-def _dw_plan(n, h, c, w, k):
-    """The dw kernel's k tile, image rows per block, row runs per image and
-    column tiles: enough blocks to fill the card, each over a run of at
-    least ``_DW_MIN_ROWS`` rows (where the image has them) of one
-    128-column tile, so that a run's two halo rows stay a small share."""
-    kt = k_tier(min(k, K_TIERS[-1]))
+def dw_plan(n, h, c, w, k):
+    """The dw kernel's k tile KT, channel chunk CC, image rows per work
+    item, row runs per image and 128-column tiles (``csrc/conv3x3_dw.cu``
+    ``DwPlan``): KT is K's tier up to 32 (K > 32 in tiles of 32), CC 8 for
+    C <= 8 and 16 otherwise; enough items (slice x channel chunk x k tile)
+    for eight an SM, each over a run of at least ``_DW_MIN_ROWS`` rows
+    (where the image has them), so that a run's two halo rows stay a small
+    share."""
+    kt = k_tier(min(k, 32))
+    cc = 8 if c <= 8 else 16
     col_tiles = -(-w // _DW_COLS)
-    tiles = n * -(-c // 8) * -(-k // kt) * col_tiles
+    tiles = n * -(-c // cc) * -(-k // kt) * col_tiles
     chunks = min(-(-h // _DW_MIN_ROWS),
                  max(1, -(-_DW_TARGET_BLOCKS // tiles)))
     rows_per_block = -(-h // chunks)
-    return kt, rows_per_block, -(-h // rows_per_block), col_tiles
+    return kt, cc, rows_per_block, -(-h // rows_per_block), col_tiles
 
 
 def _dw_fwd(x, ct):
@@ -225,12 +251,16 @@ def _dw_fwd(x, ct):
         return dw
     if not x.numel():
         return dw.zero_()
-    kt, rows_per_block, row_chunks, col_tiles = _dw_plan(n, h, c, wd, k)
-    ws = torch.empty((n * row_chunks * col_tiles, 9, c, k), dtype=x.dtype,
-                     device=x.device)
+    # a ragged W padded with zero columns, which add nothing
+    x, ct = tma_operand(x), tma_operand(ct)
+    wd = x.shape[3]
+    kt, cc, rows_per_block, row_chunks, col_tiles = dw_plan(n, h, c, wd, k)
+    # a partial for each of the kernel's two warpgroups a pixel slice
+    ws = torch.empty((2 * n * row_chunks * col_tiles, 9, c, k),
+                     dtype=x.dtype, device=x.device)
     _build.launch("conv3x3_dw", "pggan_conv3x3_dw", x.device, x.data_ptr(),
-                  ct.data_ptr(), ws.data_ptr(), dw.data_ptr(), n, h, c, wd, k,
-                  kt, rows_per_block, row_chunks, col_tiles)
+                  ct.data_ptr(), ws.data_ptr(), dw.data_ptr(), n, h, c, wd,
+                  k, kt, cc, rows_per_block, row_chunks, col_tiles)
     return dw
 
 

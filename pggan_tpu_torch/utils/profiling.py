@@ -31,7 +31,7 @@ KERNEL_GROUPS = (
     # oneRankReduce kernel, and an in-place sum runs nothing
     ("NCCL collectives", ("nccl", "oneRankReduce")),
     ("chain kernel", ("chain_kernel", "chain_split")),
-    ("conv3x3 kernel", ("conv3x3_kernel", "conv3x3_split")),
+    ("conv3x3 kernel", ("conv3x3_wgmma",)),
     ("conv3x3_dw kernel", ("conv3x3_dw",)),
     ("upsample kernel", ("upsample2x",)),
     ("pool kernel", ("avgpool2x",)),

@@ -64,10 +64,10 @@ def test_device_profile_of_a_cpu_window():
 
 def test_kernel_names_fall_in_their_groups():
     names = {
-        "void (anonymous namespace)::conv3x3_kernel<16, 2>(Args)":
+        "void (anonymous namespace)::conv3x3_wgmma<16, 2>(CUtensorMap)":
             "conv3x3 kernel",
-        "void (anonymous namespace)::split_weights<(anonymous namespace)::"
-        "conv3x3_split>(float const*)": "conv3x3 kernel",
+        "void (anonymous namespace)::conv3x3_dw_wgmma<64, 8>(CUtensorMap)":
+            "conv3x3_dw kernel",
         "void (anonymous namespace)::conv3x3_dw_reduce(float const*)":
             "conv3x3_dw kernel",
         "void (anonymous namespace)::upsample2x_rows<uint2, uint4>(uint2 "
