@@ -31,7 +31,12 @@ a one-rank NCCL process group (its replay against a group-less step, the
 NCCL kernels in the replay's profile), two gloo ranks sharing the card
 against one process's global-batch step, the train CLI under ``torchrun
 --nproc_per_node 1`` with a resume, and ``sample_images`` over two
-replicas of G on the card against the one-device serve.
+replicas of G on the card against the one-device serve. Then grouped
+dispatch (phase E): a group of 8 depth-8 steps, one CUDA graph replay,
+against 8 single-step replays from one state, and the step time through
+the ``Trainer`` at depths 0, 2, 4 and 8 with 1 and 8 steps a dispatch,
+each key's warm-up and capture, and the pinned bytes held in flight
+against the budget.
 
     python3 chip_smoke.py
 
@@ -1212,10 +1217,16 @@ def step_against_cpu(torch, device="cuda"):
 # SyntheticDataset items, every stage cut to CLI_LOD images stable and
 # CLI_LOD fading, the first run stopped at CLI_STOP kimg (in depth 7's
 # stable phase) and resumed to CLI_TOTAL kimg: depth 8 fades for 16 steps
-# of 3 images and then runs 8 stable steps.
+# of 3 images (two groups of 8) and then runs 19 stable steps (a group, 3
+# single steps up to a tick, a group). With the default
+# steps_per_dispatch 8, depths 7 and 8 dispatch groups; a graph is captured
+# at a key's second call, so depth 7's one group a window runs eagerly.
+# The bf16 run (phase 15) stops at BF16_CLI_TOTAL: a bf16 step takes over
+# a second.
 CLI_LOD = 48
 CLI_STOP = 0.7
-CLI_TOTAL = (16 * CLI_LOD + 8 * 3) / 1000
+CLI_TOTAL = (16 * CLI_LOD + 19 * 3) / 1000
+BF16_CLI_TOTAL = (16 * CLI_LOD + 8 * 3) / 1000
 
 
 def cli_argv(root, total_kimg, *extra):
@@ -1234,20 +1245,65 @@ def cli_argv(root, total_kimg, *extra):
             "--total_kimg", str(total_kimg), *extra]
 
 
-def schedule_steps(start_nimg, stop_kimg):
-    """Steps of each (depth, batch, fade) key from ``start_nimg`` until the
-    trainer stops at ``stop_kimg``, by the port's schedule with the
-    paper's per-depth batches; and the image count it stops at."""
-    from pggan_tpu_torch.training.schedule import (depth_alpha_schedule,
-                                                   minibatch_for_depth)
-    steps, nimg = collections.Counter(), start_nimg
-    while nimg < stop_kimg * 1000:
-        depth, alpha = depth_alpha_schedule(nimg, TRAIN_DEPTH, CLI_LOD,
-                                            CLI_LOD)
-        batch = minibatch_for_depth(depth)
-        steps[(depth, batch, alpha < 1.0)] += 1
-        nimg += batch
-    return steps, nimg
+def planned_dispatches(start_nimg, stop_kimg, steps_per_dispatch=8,
+                       lod=CLI_LOD, max_depth=TRAIN_DEPTH):
+    """The dispatches of a ``cli_argv`` run from ``start_nimg`` (a resume
+    there, or 0) until the trainer stops at ``stop_kimg``: the port's
+    ``Trainer`` and ``DepthManager`` with the run's schedule and the
+    paper's per-depth batches, driven with a stub builder that counts the
+    calls of each key, (depth, batch, fade) for a step and (depth, batch,
+    fade, group) for a group. Returns the counts and the image count it
+    stops at."""
+    import numpy as np
+    import torch
+    from pggan_tpu_torch.training.plugins import DepthManager
+    from pggan_tpu_torch.training.trainer import Trainer
+
+    class Counting:
+        group = None
+
+        def __init__(self):
+            self.calls = collections.Counter()
+
+        def _fn(self, key):
+            zeros = torch.zeros(key[3:])
+
+            def call(*_args):
+                self.calls[key] += 1
+                return dict.fromkeys(("G_loss", "D_loss", "D_real",
+                                      "D_fake"), zeros)
+            return call
+
+        def step_fn(self, depth, batch, fade):
+            return self._fn((depth, batch, fade))
+
+        def group_step_fn(self, depth, batch, fade, group):
+            return self._fn((depth, batch, fade, group))
+
+    def batches(size):
+        while True:
+            yield np.zeros((size, 1, 1, 1), np.float32)
+
+    builder = Counting()
+    trainer = Trainer(torch.nn.Linear(1, 1), None, builder, None, None,
+                      None, None, resume_nimg=start_nimg,
+                      steps_per_dispatch=steps_per_dispatch)
+    trainer.register_plugin(DepthManager(
+        batches, None, max_depth, tick_kimg_default=2 * lod / 1000,
+        tick_kimg_overrides={}, lod_training_nimg=lod,
+        lod_transition_nimg=lod))
+    trainer.run(stop_kimg)
+    return builder.calls, trainer.cur_nimg
+
+
+def replayed_kernels(builder) -> collections.Counter:
+    """The kernels that a builder's graph replays ran: each captured
+    graph's kernel calls times its replays."""
+    replayed = collections.Counter()
+    for step in builder.graphs().values():
+        for name, n in step.captured.items():
+            replayed[name] += n * step.replays
+    return replayed
 
 
 def cli_phase(torch, keep_dir):
@@ -1256,14 +1312,13 @@ def cli_phase(torch, keep_dir):
     CLI_STOP kimg, then resumed in this process with ``--resume_network
     latest`` to CLI_TOTAL kimg: its restored state held bit for bit against
     the checkpoint, every kernel of the step launched, every stage's fade
-    and stable graph captured, finite losses. Returns the numbers, the
-    resumed run's launch counts (its eager calls) and the kernels its
-    replays ran (each graph's captured kernels times its replays). Its
-    last generator snapshot is copied into ``keep_dir``."""
-    import ast
+    and stable phase trained, the dispatches those of ``planned_dispatches``
+    (steps and groups), every key called twice or more captured, grouped
+    graphs among them, finite losses. Returns the numbers, the resumed
+    run's launch counts (its eager calls) and the kernels its replays ran
+    (each graph's captured kernels times its replays). Its last generator
+    snapshot is copied into ``keep_dir``."""
     import glob
-    import re
-    import numpy as np
     from pggan_tpu_torch import checkpoint
     from pggan_tpu_torch.cli import train as cli
     from pggan_tpu_torch.ops import _build
@@ -1287,20 +1342,18 @@ def cli_phase(torch, keep_dir):
         if res.returncode != 0:
             log(res.stderr[-4000:])
             raise AssertionError(f"the train CLI exited {res.returncode}")
-        m = re.search(r"fade\) (\[.*\]); peak device memory (\d+) B",
-                      res.stdout)
-        first_keys, out["first_run_peak_bytes"] = (
-            set(ast.literal_eval(m.group(1))), int(m.group(2)))
+        first_keys, out["first_run_peak_bytes"] = captured_keys(res.stdout)
         run1, = glob.glob(os.path.join(root, "001-*"))
         state_path, = glob.glob(os.path.join(run1, "training-state-*.dat"))
         sd, nimg, iterations, base_time = checkpoint.load_training_state(
             state_path)
-        steps1, stop1 = schedule_steps(0, CLI_STOP)
-        steps2, _ = schedule_steps(nimg, CLI_TOTAL)
+        steps1, stop1 = planned_dispatches(0, CLI_STOP)
+        steps2, stop2 = planned_dispatches(nimg, CLI_TOTAL)
         if nimg != stop1 or first_keys != {k for k, n in steps1.items()
                                            if n >= 2}:
-            raise AssertionError(f"first run: stopped at {nimg} (schedule "
-                                 f"{stop1}), graphs {sorted(first_keys)}")
+            raise AssertionError(f"first run: stopped at {nimg} (plan "
+                                 f"{stop1}), graphs {sorted(first_keys)}, "
+                                 f"plan {dict(steps1)}")
         ticks = sum(ln.startswith("tick ") for ln in lines)
         saves = sum(ln.startswith("[SaverPlugin]") for ln in lines)
 
@@ -1335,24 +1388,32 @@ def cli_phase(torch, keep_dir):
             launches = dict(_build.LAUNCHES)
             out["resumed_run_peak_bytes"] = torch.cuda.max_memory_allocated()
             builder = trainer.builder
-            second_keys = set(builder.graphed_keys())
-            replayed = collections.Counter()
-            for key in second_keys:
-                step = builder.step_fn(*key)
-                for name, n in step.captured.items():
-                    replayed[name] += n * step.replays
+            second_keys = set(builder.graphs())
+            replayed = replayed_kernels(builder)
+            calls = {k: int(s.warm) + s.replays
+                     for k, s in builder._steps.items()}
             out["launches_eager"] = launches
             out["kernels_run_in_replays"] = dict(replayed)
+            if calls != dict(steps2) or trainer.cur_nimg != stop2:
+                raise AssertionError(f"resumed run: calls {calls} at "
+                                     f"{trainer.cur_nimg} images, plan "
+                                     f"{dict(steps2)} at {stop2}")
             if second_keys != {k for k, n in steps2.items() if n >= 2}:
                 raise AssertionError(f"resumed run: graphs "
                                      f"{sorted(second_keys)}")
-            if first_keys | second_keys != want_keys:
-                raise AssertionError("the run missed a stage's graph: "
-                                     f"{sorted(want_keys - first_keys)}")
-            depth8 = {k: builder.step_fn(*k).replays + 1
-                      for k in second_keys if k[0] == TRAIN_DEPTH}
-            if len(depth8) != 2 or min(depth8.values()) < 4:
-                raise AssertionError(f"depth-8 steps {depth8}")
+            if {k[:3] for k in (*steps1, *steps2)} != want_keys:
+                raise AssertionError("the run missed a stage: "
+                                     f"{sorted(want_keys - set(steps1))}")
+            groups = {k: n for k, n in (*steps1.items(), *steps2.items())
+                      if len(k) == 4}
+            grouped_graphs = sorted(k for k in first_keys | second_keys
+                                    if len(k) == 4)
+            depth8 = {k: calls[k] for k in second_keys
+                      if k[0] == TRAIN_DEPTH}
+            if not grouped_graphs or {k[2] for k in depth8 if len(k) == 4} \
+                    != {True, False}:
+                raise AssertionError(f"grouped graphs {grouped_graphs}, "
+                                     f"depth-8 graphs {depth8}")
             # launches of replayed trainer iterations (past the run's end)
             out["python_launches_per_replayed_iteration"] = replay_launches(
                 torch, trainer, _build)
@@ -1383,20 +1444,34 @@ def cli_phase(torch, keep_dir):
         per_depth[int(r["depth"])].append(r["sec.kimg"])
     out.update({
         "graphs_captured": len(first_keys) + len(second_keys),
-        "ticks": len(rows), "depth8_steps": {str(k): v
+        "grouped_dispatches": {str(k): n for k, n in groups.items()},
+        "grouped_graphs_captured": [str(k) for k in grouped_graphs],
+        "ticks": len(rows), "depth8_calls": {str(k): v
                                              for k, v in depth8.items()},
         "sec_per_kimg_by_depth": {d: v for d, v in sorted(per_depth.items())},
         "first_run_ticks": ticks, "first_run_checkpoints": saves})
     log(f"  sec/kimg per tick by the depth it ended at: "
         + "; ".join(f"{d}: {', '.join(f'{x:.1f}' for x in v)}"
                     for d, v in sorted(per_depth.items())))
+    log(f"  grouped dispatches (depth, batch, fade, group): calls "
+        f"{groups}; grouped graphs captured {grouped_graphs}")
     log(f"  graphs captured: {out['graphs_captured']} ({len(first_keys)} + "
-        f"{len(second_keys)}); depth-8 steps {depth8}; peak device memory "
+        f"{len(second_keys)}); depth-8 calls {depth8}; peak device memory "
         f"{out['first_run_peak_bytes'] / 2**30:.2f} / "
         f"{out['resumed_run_peak_bytes'] / 2**30:.2f} GiB (first / resumed "
         f"run); launches from Python per replayed trainer iteration "
         f"{out['python_launches_per_replayed_iteration']:.1f}")
     return out, launches, replayed
+
+
+def captured_keys(stdout: str):
+    """The keys of the graphs that ``cli.train`` reports it captured, and
+    the peak device memory it reports."""
+    import ast
+    import re
+    m = re.search(r"group\]\) (\[.*\]); peak device memory (\d+) B",
+                  stdout)
+    return set(ast.literal_eval(m.group(1))), int(m.group(2))
 
 
 def compare_state(a, b) -> bool:
@@ -1597,11 +1672,7 @@ def sound_phase(torch, root, device="cuda"):
     finally:
         restore()
     launches = dict(_build.LAUNCHES)
-    replayed = collections.Counter()
-    for key in trainer.builder.graphed_keys():
-        step = trainer.builder.step_fn(*key)
-        for name, n in step.captured.items():
-            replayed[name] += n * step.replays
+    replayed = replayed_kernels(trainer.builder)
     run, = glob.glob(os.path.join(root, "runs", "001-*"))
     rows = [json.loads(ln) for ln in open(os.path.join(run, "metrics.jsonl"))]
     if trainer.depth != SOUND_DEPTH or not all(
@@ -1617,7 +1688,7 @@ def sound_phase(torch, root, device="cuda"):
         raise AssertionError(f"SoundSaver's Griffin-Lim calls {gl_calls}")
     out.update(wavs=check_wavs(wavs, "train run"), ticks=len(rows),
                griffin_lim_calls=len(gl_calls),
-               graphs_captured=len(trainer.builder.graphed_keys()))
+               graphs_captured=len(trainer.builder.graphs()))
     log(f"  sound run: {len(rows)} ticks to depth {trainer.depth} in "
         f"{out['train_s']:.1f} s, {out['graphs_captured']} graphs, "
         f"{out['wavs']} WAVs from {len(gl_calls)} Griffin-Lim calls on the "
@@ -2226,11 +2297,7 @@ def bf16_train_phase(torch):
             times.append((time.perf_counter() - t0) * 1e3)
             if not all(math.isfinite(v) for v in values.values()):
                 raise AssertionError(f"bf16 replay: metrics {values}")
-        replayed = collections.Counter()
-        for key in builder.graphed_keys():
-            s = builder.step_fn(*key)
-            for name, n in s.captured.items():
-                replayed[name] += n * s.replays
+        replayed = replayed_kernels(builder)
         params = [*G.parameters(), *D.parameters()]
         if not all(p.dtype == torch.float32 and bool(torch.isfinite(p).all())
                    for p in params):
@@ -2390,7 +2457,7 @@ def bf16_step_against_cpu(torch, device="cuda"):
 def bf16_cli_phase(torch, keep_dir, device="cuda"):
     """Phase 15: a bf16 progressive run of the paper configuration through
     ``cli.train`` (in this process, so its launches count) from depth 0 to
-    8 on phase 9's shortened schedule to CLI_TOTAL kimg, no resume: the
+    8 on phase 9's shortened schedule to BF16_CLI_TOTAL kimg, no resume: the
     bf16 pool and upsample launch in eager first calls and run in replays,
     no f32 kernel runs, the last snapshot's config says bfloat16 and loads
     through ``load_snapshot``; sec/kimg per tick. The snapshot is copied
@@ -2402,7 +2469,7 @@ def bf16_cli_phase(torch, keep_dir, device="cuda"):
     from pggan_tpu_torch.ops import _build
     out = {}
     with tempfile.TemporaryDirectory() as root:
-        argv = cli_argv(root, CLI_TOTAL, "--Generator.compute_dtype",
+        argv = cli_argv(root, BF16_CLI_TOTAL, "--Generator.compute_dtype",
                         "bfloat16", "--Discriminator.compute_dtype",
                         "bfloat16", "--device", device)
         _build.LAUNCHES.clear()
@@ -2416,12 +2483,8 @@ def bf16_cli_phase(torch, keep_dir, device="cuda"):
         out["peak_bytes"] = (torch.cuda.max_memory_allocated()
                              if device == "cuda" else None)
         launches = dict(_build.LAUNCHES)
-        replayed = collections.Counter()
-        for key in trainer.builder.graphed_keys():
-            step = trainer.builder.step_fn(*key)
-            for name, n in step.captured.items():
-                replayed[name] += n * step.replays
-        out["graphs_captured"] = len(trainer.builder.graphed_keys())
+        replayed = replayed_kernels(trainer.builder)
+        out["graphs_captured"] = len(trainer.builder.graphs())
         depth = trainer.depth
         del trainer
         run, = glob.glob(os.path.join(root, "001-*"))
@@ -2630,7 +2693,9 @@ def nccl_phase(torch):
     a one-rank NCCL process group (a ``FileStore`` in a temp dir), graphed:
     per graph (fade, stable) the eager first call, the capture, then
     DP_REPLAYS replays timed in turns with a group-less builder's; one
-    replay profiled (the NCCL kernels in the graph); then, with cuDNN's
+    replay profiled (the NCCL kernels in the graph); a grouped dispatch of
+    GROUP fade steps (``group_step_fn``) under the process group, its
+    replay profiled (GROUP times the NCCL kernels); then, with cuDNN's
     deterministic algorithms, a group replay against a group-less eager
     step from the same state (``twin_updates``: the losses and the whole
     update within phase 5's bars)."""
@@ -2715,17 +2780,34 @@ def nccl_phase(torch):
         out["profile_replay_fade"] = {
             k: v for k, v in profile.items() if k != "ms_per_step_by_name"}
         out["nccl_kernels_ms"] = nccl
-        replayed = collections.Counter()
-        for key in builder.graphed_keys():
-            s = builder.step_fn(*key)
-            for name, n in s.captured.items():
-                replayed[name] += n * s.replays
+        # a grouped dispatch of GROUP fade steps under the process group:
+        # its graph records every step's collectives (thread-local capture)
+        gstep = builder.group_step_fn(TRAIN_DEPTH, TRAIN_BATCH, True, GROUP)
+        greals = torch.stack([reals] * GROUP)
+        ones = torch.ones(GROUP).numpy()
+        for _ in range(2):  # eager, then the capture and a replay
+            gstep(state, greals, 0.5 * ones, LR * ones, LR * ones)
+        prof, _ = capture(lambda: gstep(state, greals, 0.5 * ones,
+                                        LR * ones, LR * ones))
+        n_group = sum(r["count"] for r in kernel_rows(prof)
+                      if r["group"] == "NCCL collectives")
+        metrics = gstep(state, greals, 0.5 * ones, LR * ones, LR * ones)
+        if n_group != GROUP * n_nccl or not all(
+                bool(torch.isfinite(v).all()) for v in metrics.values()):
+            raise AssertionError(f"a grouped dispatch of {GROUP} steps ran "
+                                 f"{n_group} NCCL kernels ({n_nccl} a step), "
+                                 f"metrics {metrics}")
+        log(f"  a grouped dispatch of {GROUP} fade steps under the NCCL "
+            f"group, replayed: {n_group} NCCL kernels, {n_nccl} a step; "
+            f"capture {gstep.capture_s:.3f} s")
+        out["nccl_kernels_per_grouped_replay"] = n_group
+        replayed = replayed_kernels(builder)
         # the bar: a replay under the group against a group-less eager
         # step from the same state, cuDNN deterministic in both
         G, D = routes["group"][2:]
         rreals = prep(uint8_reals(torch, builder, TRAIN_DEPTH,
                                   SEED + 20).cuda(), REPLAY_ALPHA)
-        del routes, builder, step
+        del routes, builder, step, gstep, greals
         torch.cuda.empty_cache()
         torch.backends.cudnn.deterministic = True
         try:
@@ -3050,13 +3132,9 @@ def cli_rank(outfile: str, saved: str, argv) -> int:
     trainer = cli.cli_main(argv)
     launches = dict(_build.LAUNCHES)
     builder = trainer.builder
-    replayed, replays = collections.Counter(), []
-    for key in builder.graphed_keys():
-        step = builder.step_fn(*key)
-        replays.append([int(key[0]), int(key[1]), bool(key[2]),
-                        step.replays])
-        for name, n in step.captured.items():
-            replayed[name] += n * step.replays
+    replayed = replayed_kernels(builder)
+    replays = [[*map(int, key[:2]), bool(key[2]), *map(int, key[3:]),
+                step.replays] for key, step in builder.graphs().items()]
     with open(outfile, "w") as f:
         json.dump({"launches": launches, "replayed": dict(replayed),
                    "replays": replays, "cur_nimg": trainer.cur_nimg,
@@ -3071,9 +3149,7 @@ def torchrun_phase(torch):
     DP_TOTAL through ``cli_rank`` (the resumed state held against the
     saved one, the launches and replays). Every step after a stage's first
     is a replay; metrics.jsonl counts the global kimg."""
-    import ast
     import glob
-    import re
     from pggan_tpu_torch import checkpoint
     here = os.path.dirname(os.path.abspath(__file__))
     torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -3100,9 +3176,8 @@ def torchrun_phase(torch):
             return sorted(glob.glob(os.path.join(root, "0*-*")))
 
         text = launch("first", ["-m", "pggan_tpu_torch.cli.train"], DP_STOP)
-        m = re.search(r"fade\) (\[.*\]); peak device memory", text)
-        first_keys = set(ast.literal_eval(m.group(1)))
-        steps1, stop1 = schedule_steps(0, DP_STOP)
+        first_keys = captured_keys(text)[0]
+        steps1, stop1 = planned_dispatches(0, DP_STOP)
         if first_keys != {k for k, n in steps1.items() if n >= 2}:
             raise AssertionError(f"first run: graphs {sorted(first_keys)}, "
                                  f"steps {dict(steps1)}")
@@ -3123,9 +3198,8 @@ def torchrun_phase(torch):
             f"bit")
         with open(report) as f:
             rank = json.load(f)
-        steps2, stop2 = schedule_steps(nimg, DP_TOTAL)
-        want = sorted([int(d), int(b), bool(f), n - 1]
-                      for (d, b, f), n in steps2.items() if n >= 2)
+        steps2, stop2 = planned_dispatches(nimg, DP_TOTAL)
+        want = sorted([*key, n - 1] for key, n in steps2.items() if n >= 2)
         if sorted(rank["replays"]) != want or rank["cur_nimg"] != stop2:
             raise AssertionError(f"resumed run: replays {rank['replays']}, "
                                  f"schedule {want}; {rank['cur_nimg']} "
@@ -3206,6 +3280,298 @@ def replicas_phase(torch):
     del G
     torch.cuda.empty_cache()
     return out, dict(launches)
+
+
+# Grouped dispatch (phase E), at the paper configuration: a group of GROUP
+# steps (one graph replay) against GROUP single-step replays from one state
+# at depth 8, in a fade window with a ramping lr and in a stable one; then
+# the step time through the Trainer at depths 0, 2 and 4 (batch 16) and 8
+# (batch 3) with 1 and GROUP steps a dispatch, in turns; each key's
+# eager first call and capture; the pinned bytes held in flight
+GROUP = 8  # the trainer's default steps_per_dispatch
+GROUP_ALPHAS = [0.30 + 0.02 * k for k in range(GROUP)]  # a fade window
+GROUP_LRS = ([1e-3 * (0.6 + 0.05 * k) for k in range(GROUP)],
+             [1e-3 * (0.3 + 0.05 * k) for k in range(GROUP)])
+GROUP_RUNS = ((0, 16), (2, 16), (4, 16), (TRAIN_DEPTH, TRAIN_BATCH))
+GROUP_TIMED = 16  # steps timed a turn (two turns a mode), after the warm-up
+METRICS = ("G_loss", "D_loss", "D_real", "D_fake")
+
+
+def stage_cost(torch, call, step) -> dict:
+    """A key's first two calls: the eager first call's seconds, the
+    capture's (``step().capture_s``: ``step`` gives the key's graphed
+    step once it exists) and the second call's whole, and the peak device
+    memory over both."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return {"eager_s": times[0], "capture_s": step().capture_s,
+            "second_call_s": times[1],
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def group_exactness(torch):
+    """One group replay of GROUP steps against GROUP single-step replays
+    from one warm state, with cuDNN held to its deterministic algorithms:
+    depth 8, batch 3, in a fade window (GROUP_ALPHAS) with a ramping lr
+    (GROUP_LRS), then in a stable one. The group gets the single steps'
+    reals stacked, so only the dispatch differs. Returns, per window, the
+    metrics' and updates' agreement (``update_errors``) and each key's
+    stage-change cost (``stage_cost``)."""
+    import numpy as np
+    from pggan_tpu_torch import checkpoint
+    from pggan_tpu_torch.training import TrainStepBuilder, init_state
+    models = [paper_models(torch, "cuda") for _ in range(2)]
+    states = [init_state(G, D, seed=SEED) for G, D in models]
+    single, grouped = (TrainStepBuilder(G, D) for G, D in models)
+    prep = single.prep_fn()
+    u8 = [uint8_reals(torch, single, TRAIN_DEPTH, SEED + 30 + k).cuda()
+          for k in range(GROUP)]
+    params = [[*G.parameters(), *D.parameters()] for G, D in models]
+    out = {"stage_change": {}}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for fade in (True, False):  # each key's eager call and capture
+            a = np.float32(0.5 if fade else 1.0)
+            reals = [prep(x, a) for x in u8]
+            step = single.step_fn(TRAIN_DEPTH, TRAIN_BATCH, fade)
+            gstep = grouped.group_step_fn(TRAIN_DEPTH, TRAIN_BATCH, fade,
+                                          GROUP)
+            ones = np.ones(GROUP, np.float32)
+            out["stage_change"][str((TRAIN_DEPTH, TRAIN_BATCH, fade))] = \
+                stage_cost(torch, lambda: step(states[0], reals[0], a, LR,
+                                               LR), lambda: step)
+            out["stage_change"][str((TRAIN_DEPTH, TRAIN_BATCH, fade,
+                                     GROUP))] = stage_cost(
+                torch, lambda: gstep(states[1], torch.stack(reals), a * ones,
+                                     LR * ones, LR * ones), lambda: gstep)
+        for fade in (True, False):
+            alphas = np.asarray(GROUP_ALPHAS if fade else [1.0] * GROUP,
+                                np.float32)
+            lrs_d, lrs_g = (np.asarray(v, np.float32) for v in GROUP_LRS)
+            reals = [prep(x, a) for x, a in zip(u8, alphas)]
+            checkpoint.restore_training_state(
+                states[1], checkpoint.training_state_dict(states[0]))
+            before = [p.detach().clone() for p in params[0]]
+            step = single.step_fn(TRAIN_DEPTH, TRAIN_BATCH, fade)
+            per = []
+            for k in range(GROUP):
+                m = step(states[0], reals[k], alphas[k], lrs_d[k], lrs_g[k])
+                per.append(torch.stack([m[n] for n in METRICS]))
+            per = torch.stack(per)
+            m = grouped.group_step_fn(TRAIN_DEPTH, TRAIN_BATCH, fade, GROUP)(
+                states[1], torch.stack(reals), alphas, lrs_d, lrs_g)
+            got = torch.stack([m[n] for n in METRICS], 1)
+            if not torch.equal(states[0].generator.get_state(),
+                               states[1].generator.get_state()):
+                raise AssertionError("the group left another generator "
+                                     "state than its single steps")
+            metric_err = float(((got - per).abs()
+                                / per.abs().clamp_min(1e-30)).max())
+            res = {"metrics_bitwise": bool(torch.equal(got, per)),
+                   "metric_rel_err": metric_err,
+                   **update_errors(torch, before, params[1], params[0])}
+            window = "fade" if fade else "stable"
+            out[window] = res
+            log(f"  {window} window: a group replay of {GROUP} against "
+                f"{GROUP} single replays from one state: metrics "
+                + ("bit for bit" if res["metrics_bitwise"] else
+                   f"within {metric_err:.2e}") + "; updates of "
+                f"{res['tensors_moved']} tensors "
+                + ("bit for bit" if res["params_bitwise"] else
+                   f"apart by up to {res['update_err_over_norm']:.2e} of a "
+                   f"tensor's norm"))
+            if metric_err > STEP_LOSS_RTOL or \
+                    res["update_err_over_norm"] > UPDATE_TOL:
+                raise AssertionError(f"{window} group against its steps: "
+                                     f"{res}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for key, c in out["stage_change"].items():
+        log(f"  stage change {key}: eager first call {c['eager_s']:.3f} s, "
+            f"capture {c['capture_s']:.3f} s (second call "
+            f"{c['second_call_s']:.3f} s), peak "
+            f"{c['peak_bytes'] / 2**30:.2f} GiB")
+    out["replayed"] = replayed_kernels(single) + replayed_kernels(grouped)
+    del models, states, single, grouped, params, before, u8, reals
+    torch.cuda.empty_cache()
+    return out
+
+
+def stable_trainer(torch, state, builder, dataset, depth, batch, spd):
+    """A ``Trainer`` on ``state`` and ``builder`` in the terminal stable
+    phase of a schedule that ends at ``depth`` (alpha 1 from then on, no
+    tick in sight), with the CLI's plugins that steer a step: the
+    DepthManager (a uint8 ``DataIterator`` at ``batch``), the lr schedule
+    and the loss monitors."""
+    from pggan_tpu_torch.data.loader import DataIterator
+    from pggan_tpu_torch.training.plugins import (DepthManager,
+                                                  EfficientLossMonitor,
+                                                  LRScheduler)
+    from pggan_tpu_torch.training.trainer import Trainer
+    lod = 1000
+    trainer = Trainer(state.G, state.D, builder, state, dataset, None, None,
+                      resume_nimg=2 * lod * depth, steps_per_dispatch=spd)
+    trainer.register_plugin(DepthManager(
+        lambda bs: DataIterator(dataset, bs, num_workers=4, seed=SEED,
+                                raw=True),
+        None, depth, minibatch_default=batch, minibatch_overrides={},
+        tick_kimg_default=10 ** 6, lod_training_nimg=lod,
+        lod_transition_nimg=lod))
+    trainer.register_plugin(LRScheduler(LR, LR, rampup_kimg=0))
+    for i, name in enumerate(METRICS):
+        trainer.register_plugin(EfficientLossMonitor(i, name))
+    return trainer
+
+
+def run_steps(trainer, n: int) -> int:
+    """``trainer.train()`` until ``n`` more steps ran; the steps run."""
+    start = trainer.iterations
+    while trainer.iterations - start < n:
+        trainer.train()
+    return trainer.iterations - start
+
+
+def group_timing(torch):
+    """The step time through the ``Trainer`` at each of GROUP_RUNS, with 1
+    and GROUP steps a dispatch on one state and one builder, in turns (1,
+    GROUP, GROUP, 1) of GROUP_TIMED steps after each mode's warm-up and
+    capture: host ms a step (synchronised at both ends; 32 steps a mode),
+    kernel wrapper launches a step, and a profiled window of GROUP steps
+    (host launches a step, the device's busy share). Each key's
+    stage-change cost. At depth 8 the most pinned bytes in flight at the
+    default budget and, over 32 steps, at a budget of two grouped
+    dispatches."""
+    from pggan_tpu_torch.data.datasets import SyntheticDataset
+    from pggan_tpu_torch.ops import _build
+    from pggan_tpu_torch.training import TrainStepBuilder, init_state
+    from pggan_tpu_torch.utils.profiling import capture, device_profile
+    G, D = paper_models(torch, "cuda")
+    state = init_state(G, D, seed=SEED)
+    builder = TrainStepBuilder(G, D)
+    res = G.dataset_shape[-1]
+    dataset = SyntheticDataset(resolution=res, num_items=8, seed=SEED)
+    out = {}
+    for depth, batch in GROUP_RUNS:
+        t_depth = time.perf_counter()
+        trainers = {spd: stable_trainer(torch, state, builder, dataset,
+                                        depth, batch, spd)
+                    for spd in (1, GROUP)}
+        row = {"batch": batch, "stage_change": {}}
+        try:
+            for spd, t in trainers.items():
+                key = (depth, batch, False) + ((GROUP,) if spd > 1 else ())
+                row["stage_change"][str(key)] = stage_cost(
+                    torch, t.train, lambda key=key: builder._steps[key])
+            times, wrapper = {1: [], GROUP: []}, {1: 0, GROUP: 0}
+            turns = {1: [], GROUP: []}
+            for spd in (1, GROUP, GROUP, 1):
+                t = trainers[spd]
+                t.inflight_peak_bytes = 0
+                before = sum(_build.LAUNCHES.values())
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                n = run_steps(t, GROUP_TIMED)
+                torch.cuda.synchronize()
+                times[spd].append((time.perf_counter() - t0) * 1e3 / n)
+                turns[spd].append(n)
+                wrapper[spd] += sum(_build.LAUNCHES.values()) - before
+            if any(wrapper.values()):
+                raise AssertionError(f"depth {depth}: replayed dispatches "
+                                     f"called kernel wrappers {wrapper}")
+            for spd, t in trainers.items():
+                prof, wall_ms = capture(lambda t=t: run_steps(t, GROUP))
+                p = device_profile(prof, wall_ms, GROUP,
+                                   f"depth {depth}, {spd} step(s) a "
+                                   f"dispatch, profiled", "step", log=log)
+                row[f"spd{spd}"] = {
+                    "ms_per_step": sum(map(lambda m, n: m * n, times[spd],
+                                           turns[spd])) / sum(turns[spd]),
+                    "ms_per_step_turns": times[spd],
+                    "kernel_wrapper_launches_per_step":
+                        wrapper[spd] / sum(turns[spd]),
+                    "host_launches_per_step": p["host_launches_per_step"],
+                    "device_busy_share": p["device_busy_share"],
+                    "device_busy_ms_per_step": p["device_busy_ms_per_step"],
+                    "wall_ms_per_step_profiled": p["wall_ms_per_step"],
+                    "inflight_peak_bytes": t.inflight_peak_bytes}
+            log(f"  depth {depth}, batch {batch}: ms a step, 1 / {GROUP} "
+                f"a dispatch (turns 1, {GROUP}, {GROUP}, 1): "
+                f"{', '.join(f'{x:.2f}' for x in times[1])} / "
+                f"{', '.join(f'{x:.2f}' for x in times[GROUP])}; host "
+                f"launches a step {row['spd1']['host_launches_per_step']:.1f}"
+                f" / {row[f'spd{GROUP}']['host_launches_per_step']:.1f}; "
+                f"busy {row['spd1']['device_busy_share']:.1%} / "
+                f"{row[f'spd{GROUP}']['device_busy_share']:.1%}")
+            if depth == TRAIN_DEPTH:
+                t = trainers[GROUP]
+                per_dispatch = GROUP * batch * res * res * 3
+                row["budget_default_mb"] = t.inflight_budget_mb
+                row["dispatch_bytes"] = per_dispatch
+                t.inflight_budget_mb = -(-2 * per_dispatch // 2**20)
+                t.inflight_peak_bytes = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                n = run_steps(t, 2 * GROUP_TIMED)
+                torch.cuda.synchronize()
+                row["budget_two_dispatches"] = {
+                    "budget_mb": t.inflight_budget_mb,
+                    "inflight_peak_bytes": t.inflight_peak_bytes,
+                    "ms_per_step": (time.perf_counter() - t0) * 1e3 / n}
+                log(f"  pinned bytes in flight at most: "
+                    f"{row[f'spd{GROUP}']['inflight_peak_bytes']} at the "
+                    f"default budget {row['budget_default_mb']} MiB; "
+                    f"{t.inflight_peak_bytes} at {t.inflight_budget_mb} MiB "
+                    f"(two dispatches of {per_dispatch} B), "
+                    f"{row['budget_two_dispatches']['ms_per_step']:.2f} ms "
+                    f"a step")
+                if t.inflight_peak_bytes > (t.inflight_budget_mb * 2**20
+                                            + per_dispatch):
+                    raise AssertionError("the budget did not bound the "
+                                         "bytes in flight")
+        finally:
+            for t in trainers.values():
+                t.dataiter.close()
+        for key, c in row["stage_change"].items():
+            log(f"  stage change {key}: eager first call "
+                f"{c['eager_s']:.3f} s, capture {c['capture_s']:.3f} s, "
+                f"peak {c['peak_bytes'] / 2**30:.2f} GiB")
+        row["depth_s"] = time.perf_counter() - t_depth
+        log(f"  depth {depth} took {row['depth_s']:.1f} s")
+        out[f"depth{depth}"] = row
+    out["replayed"] = replayed_kernels(builder)
+    dataset.close()
+    del G, D, state, builder, trainers
+    torch.cuda.empty_cache()
+    return out
+
+
+def group_phase(torch):
+    """Phase E: ``group_exactness`` and ``group_timing``. Returns the
+    numbers, the kernel wrappers' launches (each key's eager first call)
+    and the kernels the graph replays ran."""
+    from pggan_tpu_torch.ops import _build
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out = {"exactness_depth8": group_exactness(torch)}
+    out["exactness_s"] = time.perf_counter() - t0
+    log(f"  exactness took {out['exactness_s']:.1f} s")
+    out["timing"] = group_timing(torch)
+    replayed = out["exactness_depth8"].pop("replayed") + \
+        out["timing"].pop("replayed")
+    launches = dict(_build.LAUNCHES)
+    out.update(launches_eager=launches, kernels_run_in_replays=dict(replayed),
+               phase_s=time.perf_counter() - t0)
+    for name in TRAIN_KERNELS:
+        if not launches.get(name) or not replayed.get(name):
+            raise AssertionError(f"{name} was never launched by phase E, or "
+                                 f"never replayed")
+    return out, launches, dict(replayed)
 
 
 def main() -> int:
@@ -3370,7 +3736,7 @@ def main() -> int:
     bf16["depth6_vs_cpu"] = bf16_step_against_cpu(torch)
     log(f"phase 14 passed ({time.perf_counter() - t_start:.0f} s so far)")
     log(f"phase 15: bf16 progressive run of the paper configuration through "
-        f"the train CLI, depth 0 to {TRAIN_DEPTH}, to {CLI_TOTAL} kimg")
+        f"the train CLI, depth 0 to {TRAIN_DEPTH}, to {BF16_CLI_TOTAL} kimg")
     bf16["progressive_run"], bf16_run_launches, bf16_run_replayed = \
         bf16_cli_phase(torch, keep.name)
     bf16_snapshot = bf16["progressive_run"].pop("snapshot")
@@ -3407,6 +3773,15 @@ def main() -> int:
     dp["replicas"], replica_launches = replicas_phase(torch)
     log(f"phase D passed ({time.perf_counter() - t_start:.0f} s so far)")
 
+    # phase E: grouped dispatch
+    log(f"phase E: grouped dispatch, {GROUP} steps a graph replay: a group "
+        f"against its single steps at depth {TRAIN_DEPTH}, then the step "
+        f"time through the Trainer at depths "
+        f"{', '.join(str(d) for d, _ in GROUP_RUNS)}, 1 against {GROUP} "
+        f"steps a dispatch, on {card}")
+    group, group_launches, group_replayed = group_phase(torch)
+    log(f"phase E passed ({time.perf_counter() - t_start:.0f} s so far)")
+
     # the result lines. ms, plain_ms, library_ms and the bounds: per
     # depth-8 fade train step (batch 3) for the kernels the step runs, per
     # depth-8 serve forward (batch 16) for the serve-only chain
@@ -3415,7 +3790,8 @@ def main() -> int:
     # phase 10's sound run and sound serve, phase 11's eval, phases 12-16's
     # bf16 paths, phase A's eager calls under the NCCL group, phase B's
     # compared steps on both gloo ranks, phase C's resumed torchrun run,
-    # phase D's two-replica serves); by path beside it, with the kernels
+    # phase D's two-replica serves, phase E's eager first calls of its
+    # steps and groups); by path beside it, with the kernels
     # the runs' graph replays ran
     kernels = []
     print(json.dumps({"conv_shapes": checks.shape_rows,
@@ -3443,7 +3819,9 @@ def main() -> int:
                    "gloo_steps_two_ranks": gloo_launches.get(name, 0),
                    "torchrun_cli": torchrun_launches.get(name, 0),
                    "torchrun_cli_replayed": torchrun_replayed.get(name, 0),
-                   "sample_two_replicas": replica_launches.get(name, 0)}
+                   "sample_two_replicas": replica_launches.get(name, 0),
+                   "grouped": group_launches.get(name, 0),
+                   "grouped_replayed": group_replayed.get(name, 0)}
         log(f"  {name}: launches by path {by_path}")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -3476,6 +3854,7 @@ def main() -> int:
     print(json.dumps({"export": {**export, "card": card_line}}))
     for phase, result in dp.items():
         print(json.dumps({phase: {**result, "card": card_line}}))
+    print(json.dumps({"group": {**group, "card": card_line}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,6 +20,13 @@ data-parallel run's state also holds every rank's generator state
 (``rank_generators``), so that each rank resumes its own latent stream;
 rank 0 writes it, every rank reads it.
 ``training_state_from_jax`` converts a JAX package's training state to it.
+
+``load_training_state`` reads both packages' training states without JAX:
+a restricted unpickler admits numpy's arrays and maps the JAX state's two
+container classes, ``pggan_tpu.training.state.TrainState`` and optax's
+``ScaleByAdamState``, to local stand-ins; any other global is refused. A
+JAX state is converted on load, so ``cli.train --resume_network`` resumes
+a JAX run.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import glob
 import os
 import pickle
 import re
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -282,17 +290,67 @@ def save_training_state(path: str, state, cur_nimg: int, iterations: int,
     _atomic_dump(payload, path)
 
 
+class JaxTrainState(NamedTuple):
+    """Stand-in for ``pggan_tpu.training.state.TrainState`` (its fields and
+    default; a state pickled before ``g_ema`` existed has five values)."""
+    g_params: Any
+    d_params: Any
+    g_opt: Any
+    d_opt: Any
+    rng: Any
+    g_ema: Any = None
+
+
+class JaxAdamState(NamedTuple):
+    """Stand-in for optax's ``ScaleByAdamState``."""
+    count: Any
+    mu: Any
+    nu: Any
+
+
+# the globals a training state may name: numpy's array reconstruction
+# (its module as numpy 2 and numpy 1 spell it; the function is the one an
+# array pickles with here) and the JAX state's containers, as the JAX
+# package's ``save_training_state`` pickles them
+_reconstruct = np.zeros(0).__reduce__()[0]
+_STATE_GLOBALS = {
+    ("numpy", "ndarray"): np.ndarray,
+    ("numpy", "dtype"): np.dtype,
+    ("numpy._core.multiarray", "_reconstruct"): _reconstruct,
+    ("numpy.core.multiarray", "_reconstruct"): _reconstruct,
+    ("pggan_tpu.training.state", "TrainState"): JaxTrainState,
+    ("optax._src.transform", "ScaleByAdamState"): JaxAdamState,
+}
+
+
+class _StateUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        try:
+            return _STATE_GLOBALS[(module, name)]
+        except KeyError:
+            raise pickle.UnpicklingError(
+                f"a training state may not name {module}.{name}") from None
+
+
 def load_training_state(path: str):
     """Returns ``(state dict, cur_nimg, iterations, base_time)``, as the JAX
     package's ``load_training_state`` does; ``base_time`` is the run's
     cumulative wall-clock seconds at the save, for ``AbsoluteTimeMonitor``.
-    Unpickles the file: load only states your training runs wrote."""
+    Reads the port's states and the JAX package's (converted by
+    ``training_state_from_jax``) through a restricted unpickler that
+    refuses any global but numpy's arrays and the JAX state's containers;
+    neither JAX nor optax is needed."""
     with open(path, "rb") as f:
-        payload = pickle.load(f)
-    if payload.get("framework") != "pggan_tpu_torch":
-        raise ValueError(f"{path}: not a pggan_tpu_torch training state "
-                         "(convert a JAX one with training_state_from_jax)")
-    return (payload["state"], payload["cur_nimg"], payload["iterations"],
+        payload = _StateUnpickler(f).load()
+    framework = payload.get("framework")
+    if framework == "pggan_tpu":
+        state = training_state_from_jax(payload["state"])
+    elif framework == "pggan_tpu_torch":
+        state = payload["state"]
+    else:
+        raise ValueError(f"{path}: not a training state of pggan_tpu_torch "
+                         f"or pggan_tpu (framework {framework!r})")
+    return (state, payload["cur_nimg"], payload["iterations"],
             float(payload.get("base_time", 0.0)))
 
 

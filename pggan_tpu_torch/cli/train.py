@@ -14,10 +14,18 @@ The flags are the JAX CLI's plus ``--device`` (default ``cuda``, which
 raises without a card; ``--device cpu`` trains on the CPU with the
 kernels' plain versions). ``--device`` also sets the ``device`` of a
 dataset class or postprocessor that has one (``SoundImageDataset``'s STFT,
-``SoundSaver``'s Griffin-Lim) unless ``--Cls.device`` is given. On the card every train step after a stage's
-first is a CUDA graph replay (``training/steps.py``). Checkpoints are the
-JAX format's snapshots plus the port's training state; ``--resume_network
-latest`` resumes the newest run under ``--result_dir``.
+``SoundSaver``'s Griffin-Lim) unless ``--Cls.device`` is given. On the
+card every train step after a stage's first is a CUDA graph replay
+(``training/steps.py``). ``--Trainer.steps_per_dispatch`` (8, as in the
+JAX CLI) groups that many steps into one dispatch, on the card one graph
+replay, wherever the schedule provably holds over them (1 turns it off);
+``--Trainer.inflight_budget_mb`` (1024) bounds the pinned batch bytes of
+the dispatches the card has not finished, past which the host waits for
+the oldest (0: no waits; ``training/trainer.py``). Checkpoints are the JAX
+format's snapshots plus the port's training state; ``--resume_network
+latest`` resumes the newest run under ``--result_dir``. A JAX run resumes
+too: its training state is read without JAX (``checkpoint.py``), and from
+there on the two packages draw other latents.
 
 Under ``torchrun`` (``--data_parallel``, the default) every rank joins the
 process group (``parallel.initialize_distributed``: NCCL on the card, gloo
@@ -30,10 +38,7 @@ directory (log, metrics, samples, checkpoints). ``--num_devices``, when
 set, must equal the world size. ``--data_parallel False`` refuses a launch
 of several ranks.
 
-Accepted for the JAX CLI's sake and without effect here:
-``--Trainer.steps_per_dispatch`` and ``--Trainer.inflight_budget_mb`` (a
-replay is one launch a step already). ``--debug_nans`` turns on autograd's
-anomaly detection. ``--DepthManager.precompile_ahead True`` raises: a graph
+``--debug_nans`` turns on autograd's anomaly detection. ``--DepthManager.precompile_ahead True`` raises: a graph
 is captured after a real step of its stage.
 """
 
@@ -473,9 +478,9 @@ def main(params):
         if trainer.builder.group is not None:
             dist.barrier()  # the run ends once rank 0 has written its files
         if device.type == "cuda":
-            keys = trainer.builder.graphed_keys()
+            keys = list(trainer.builder.graphs())
             logger.log(f"CUDA graphs captured: {len(keys)}, for (depth, "
-                       f"batch, fade) {keys}; peak device memory "
+                       f"batch, fade[, group]) {keys}; peak device memory "
                        f"{torch.cuda.max_memory_allocated(device)} B")
     finally:
         if hasattr(trainer.dataiter, "close"):

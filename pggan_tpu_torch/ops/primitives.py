@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -49,6 +50,19 @@ def f32_scalar(value, device) -> torch.Tensor:
     if isinstance(value, torch.Tensor):
         return value.to(device=device, dtype=torch.float32)
     return torch.full((), float(value), dtype=torch.float32, device=device)
+
+
+def f32_vector(value, device) -> torch.Tensor:
+    """``value``, a sequence of numbers, as a float32 vector on ``device``.
+    A tensor passes through; on the card a host array is copied from pinned
+    memory without a wait (``torch.as_tensor`` would copy it from pageable
+    memory and wait for the card to get there)."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device=device, dtype=torch.float32)
+    host = torch.from_numpy(np.asarray(value, dtype=np.float32))
+    if torch.device(device).type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:

@@ -11,7 +11,8 @@ export, tracing, logging) is a plugin with trigger intervals on the
   iteration).
 - ``DepthManager`` swaps the stage on a depth change: the step the trainer
   picks (a new CUDA graph per (depth, batch, fade)), the data iterator and
-  the batch size.
+  the batch size. It and ``LRScheduler`` install the trainer's lookahead
+  hooks, the laws its grouped dispatch plans with.
 - ``SaverPlugin`` writes the snapshots in the JAX format and the port's
   full training state for an exact resume.
 
@@ -103,6 +104,18 @@ class DepthManager(Plugin):
 
     def register(self, trainer):
         self.trainer = trainer
+        # the trainer's grouped dispatch plans with these pure laws: images
+        # until (depth, alpha) next changes, images until the running fade
+        # ends, and the (depth, alpha) law itself
+        trainer.schedule_horizon = lambda nimg: schedule.stable_nimg_horizon(
+            nimg, self.max_depth,
+            self.lod_training_nimg, self.lod_transition_nimg)
+        trainer.fade_horizon = lambda nimg: schedule.fade_nimg_horizon(
+            nimg, self.max_depth,
+            self.lod_training_nimg, self.lod_transition_nimg)
+        trainer.alpha_lookahead = lambda nimg: schedule.depth_alpha_schedule(
+            nimg, self.max_depth,
+            self.lod_training_nimg, self.lod_transition_nimg)
         if self.lod_transition_nimg > self.lod_training_nimg:
             # the nimg->(depth, alpha) divmod law (reference plugins.py:57-63)
             # mis-schedules in this regime: depth can skip stages
@@ -178,22 +191,31 @@ class LRScheduler(Plugin):
 
     def register(self, trainer):
         self.trainer = trainer
+        # the lr this plugin would set at an image count, for the grouped
+        # dispatch's per-step vectors (lr_scale changes only with the depth,
+        # which a group never crosses)
+        trainer.lr_lookahead = self._lr_at
         self.iteration()
 
+    def _lr_at(self, nimg):
+        ramp = lr_rampup(nimg, self.rampup_kimg)
+        scale = getattr(self.trainer, "lr_scale", 1.0)
+        return self.lr_max_d * ramp * scale, self.lr_max_g * ramp * scale
+
     def iteration(self, *args):
-        ramp = lr_rampup(self.trainer.cur_nimg, self.rampup_kimg)
-        scale = self.trainer.lr_scale
-        self.trainer.lr_d = self.lr_max_d * ramp * scale
-        self.trainer.lr_g = self.lr_max_g * ramp * scale
+        self.trainer.lr_d, self.trainer.lr_g = self._lr_at(
+            self.trainer.cur_nimg)
 
 
 class EfficientLossMonitor(Plugin):
     """Accumulates one loss stream and exposes its per-tick mean as
     ``stats[name]['epoch_mean']`` (reference plugins.py:102-111).
 
-    Each iteration's loss is copied on the device (a graphed step returns
-    the same tensors every step and overwrites them at its next replay);
-    the copies are fetched once a tick and averaged in float64."""
+    Each iteration's loss, a scalar for one step or a (group,) vector for a
+    grouped dispatch, is copied on the device (a graph returns the same
+    tensors at every replay and overwrites them at the next); at the tick
+    the copies are concatenated, so that every step counts once, fetched
+    and averaged in float64 (``pggan_tpu/training/plugins.py:259-271``)."""
 
     def __init__(self, loss_no: int, stat_name: str):
         super().__init__([(1, "iteration"), (1, "epoch")])
@@ -214,7 +236,8 @@ class EfficientLossMonitor(Plugin):
 
     def epoch(self, epoch_idx):
         if self._values:
-            vals = torch.stack(self._values).cpu().numpy().astype(np.float64)
+            vals = torch.cat([v.reshape(-1) for v in self._values])
+            vals = vals.cpu().numpy().astype(np.float64)
             self.trainer.stats[self.stat_name]["epoch_mean"] = float(vals.mean())
             self._values = []
 
@@ -396,6 +419,10 @@ class MetricsExporter(Plugin):
                 if field != "tick":
                     self.experiment.log_metric(field, val)
             self.experiment.log_epoch_end(epoch_index)
+
+
+# the reference's name for the metrics plugin, as the JAX package keeps it
+CometPlugin = MetricsExporter
 
 
 class TraceProfiler(Plugin):

@@ -24,6 +24,17 @@ never run at once. A capture that fails raises; nothing falls back to the
 eager route, which stays reachable as ``TrainStepBuilder(...,
 cuda_graphs=False)``. On the CPU every step is eager.
 
+``group_step_fn`` is the JAX package's grouped dispatch
+(``steps.py:202-273``): ``group`` consecutive steps as one program. Step
+k reads the k-th batch of the reals and the k-th entries of the alpha and
+learning-rate vectors, so a fade and the lr ramp advance inside the group
+as they would across separate steps, and the metrics come back stacked,
+one per step. On the card the K steps are recorded in order into one CUDA
+graph, under the same rules as a step's graph (eager first call, capture
+at the second, the state's generator registered, the builder's pool):
+one launch from Python for K steps. On the CPU, and without
+``cuda_graphs``, it runs the K steps in a loop.
+
 Random draws come in the JAX step's order: per D repeat the latents and
 then the GP mixing factors, then G's latents (``steps.py:129-131,152-153``,
 ``losses.py:74``). They come from a ``noise(kind, shape)`` hook, ``kind``
@@ -56,7 +67,7 @@ import torch
 
 from pggan_tpu_torch.losses import wgan_gp_D_loss, wgan_gp_G_loss
 from pggan_tpu_torch.ops import _build
-from pggan_tpu_torch.ops.primitives import f32_scalar
+from pggan_tpu_torch.ops.primitives import f32_scalar, f32_vector
 from pggan_tpu_torch.parallel import all_reduce_grads, global_mean
 from pggan_tpu_torch.sampling import disable_tf32
 from pggan_tpu_torch.training.state import TrainState
@@ -96,22 +107,27 @@ def _default_noise(state: TrainState):
 
 def _set(static: torch.Tensor, value) -> None:
     """Write a step input into its static tensor: a tensor by a copy, a
-    number by a fill on the device."""
+    number by a fill on the device, a host vector by a copy from pinned
+    memory."""
     if isinstance(value, torch.Tensor):
         static.copy_(value)
+    elif np.ndim(value):
+        static.copy_(f32_vector(value, static.device))
     else:
         static.fill_(float(value))
 
 
 class _GraphedStep:
-    """One (depth, batch, fade) step on the card: eager on its first call,
-    captured into a CUDA graph and replayed on its second, replayed after.
-    The graph is bound to the state of the first call and returns the same
-    static metric tensors at every replay, which the next replay
-    overwrites: clone what must outlive it."""
+    """One (depth, batch, fade) step, or ``n_steps`` of them as a group, on
+    the card: eager on its first call, captured into a CUDA graph and
+    replayed on its second, replayed after. Alpha and the learning rates
+    are numbers for a step and (n_steps,) vectors for a group. The graph is
+    bound to the state of the first call and returns the same static
+    metric tensors at every replay, which the next replay overwrites:
+    clone what must outlive it."""
 
-    def __init__(self, raw, builder):
-        self.raw, self.builder = raw, builder
+    def __init__(self, raw, builder, n_steps=None):
+        self.raw, self.builder, self.n_steps = raw, builder, n_steps
         self.state = None
         self.warm = False  # the eager first call has run
         self.graph = None
@@ -130,7 +146,8 @@ class _GraphedStep:
         if self.state is None:
             self.state = state
             self.reals = torch.empty_like(reals)
-            self.scalars = torch.zeros(3, dtype=torch.float32,
+            shape = (3,) if self.n_steps is None else (3, self.n_steps)
+            self.scalars = torch.zeros(shape, dtype=torch.float32,
                                        device=reals.device)
         elif state is not self.state:
             raise ValueError("this graphed step is bound to the state of its "
@@ -202,16 +219,17 @@ class TrainStepBuilder:
         self._pool = None
         disable_tf32()
 
-    def graphed_keys(self) -> list:
-        """The (depth, batch, fade) keys whose step has been captured."""
-        return sorted(k for k, s in self._steps.items()
-                      if getattr(s, "graph", None) is not None)
-
     def graph_pool(self):
         """The memory pool that every graph of this builder shares."""
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         return self._pool
+
+    def graphs(self) -> dict:
+        """The captured graphs by key: (depth, batch, fade) for a step,
+        (depth, batch, fade, group) for a group."""
+        return {k: s for k, s in sorted(self._steps.items())
+                if getattr(s, "graph", None) is not None}
 
     def step_fn(self, depth: int, batch_size: int, fade: bool = True):
         """``step(state, reals, alpha, lr_d, lr_g, noise=None) -> metrics``:
@@ -229,6 +247,37 @@ class TrainStepBuilder:
             self._steps[key] = (_GraphedStep(raw, self) if self.cuda_graphs
                                 else raw)
         return self._steps[key]
+
+    def group_step_fn(self, depth: int, batch_size: int, fade: bool,
+                      group: int):
+        """``gstep(state, reals, alphas, lrs_d, lrs_g, noise=None) ->
+        metrics``: ``group`` steps of ``step_fn(depth, batch_size, fade)``
+        in order (``pggan_tpu/training/steps.py:263-273``). reals (group, R,
+        B, H, W, C) f32 on the device; alphas and the learning rates
+        (group,) vectors, host arrays or float32 device tensors; the four
+        metrics (group,) device tensors, step k's at k. With
+        ``cuda_graphs`` a CUDA state's group is one graph (see the module
+        docstring)."""
+        key = (depth, batch_size, fade, group)
+        if key not in self._steps:
+            raw = self._raw_group(self._raw_step(depth, batch_size, fade),
+                                  group)
+            self._steps[key] = (_GraphedStep(raw, self, group)
+                                if self.cuda_graphs else raw)
+        return self._steps[key]
+
+    @staticmethod
+    def _raw_group(step, group: int):
+        """The eager group that ``group_step_fn`` runs or captures."""
+        def gstep(state, reals, alphas, lrs_d, lrs_g, noise=None):
+            if reals.shape[0] != group:
+                raise ValueError(f"reals {tuple(reals.shape)}, expected "
+                                 f"({group}, ...)")
+            steps = [step(state, reals[k], alphas[k], lrs_d[k], lrs_g[k],
+                          noise) for k in range(group)]
+            return {name: torch.stack([m[name] for m in steps])
+                    for name in steps[0]}
+        return gstep
 
     def _raw_step(self, depth: int, batch_size: int, fade: bool):
         """The eager step that ``step_fn`` runs or captures."""
@@ -317,8 +366,7 @@ class TrainStepBuilder:
             t = x.reshape(blocks).mean(dim=(-4, -2), keepdim=True)
             t = t.expand(blocks).reshape(x.shape)
             alpha = (f32_scalar(alpha, x.device) if np.ndim(alpha) == 0
-                     else torch.as_tensor(alpha, dtype=torch.float32,
-                                          device=x.device))
+                     else f32_vector(alpha, x.device))
             alpha = alpha.reshape(alpha.shape + (1,) * (x.ndim - alpha.ndim))
             x = x * alpha + t * (1.0 - alpha)
             return (x - min_in) * scale + min_out

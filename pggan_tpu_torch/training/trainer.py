@@ -11,12 +11,21 @@ Plugin queue semantics are the reference's (trainer.py:40-69): four queues
 due plugin's method named after the queue is called and the plugin is
 rescheduled at ``time + interval``.
 
-The JAX trainer's grouped dispatch (several steps in one compiled program)
-and its dispatch backpressure serve the TPU runtime; here a replayed graph
-is already one launch a step, and the host waits on the card at each
-step's input copy. ``steps_per_dispatch`` and ``inflight_budget_mb`` are
-accepted, so that the train CLI takes the JAX CLI's ``--Trainer.*`` flags,
-and have no effect.
+Grouped dispatch (``steps_per_dispatch``, on by default with 8, as in the
+JAX trainer, ``pggan_tpu/training/trainer.py:183-289``): where the
+schedule provably holds over the next ``steps_per_dispatch`` steps (a
+stable window, or a window wholly inside one fade), they run as one
+``TrainStepBuilder.group_step_fn`` call, on the card one graph replay, with
+one upload of their batches, per-step alpha and lr vectors, and one drain
+of the iteration plugins at the final count with the stacked metrics.
+Elsewhere, and with 1, a dispatch is one step.
+
+Dispatch backpressure (``inflight_budget_mb``, ``trainer.py:61-85,
+291-309``): every batch goes to the card through a pinned buffer from a
+pool, by an asynchronous copy, so the host runs ahead of the card. Each
+dispatch keeps its buffer until an event recorded after its step has
+completed; once the buffers of unfinished dispatches pass the budget, the
+host waits for the oldest. 0 turns the waits off.
 
 Under data parallelism (the builder's ``group``) every rank runs this loop
 on its local batches: the step key holds the local batch, while the image
@@ -29,6 +38,7 @@ collectives need.
 
 from __future__ import annotations
 
+import collections
 import heapq
 import time
 
@@ -64,8 +74,26 @@ class Trainer:
         self.G = G
         self.D = D
         self.builder = builder
-        self.steps_per_dispatch = int(steps_per_dispatch)  # no effect here
-        self.inflight_budget_mb = int(inflight_budget_mb)  # no effect here
+        # up to this many consecutive steps in one dispatch where the
+        # schedule provably holds (``_plan_group``); 1 disables grouping
+        self.steps_per_dispatch = int(steps_per_dispatch)
+        # the pinned bytes that unfinished dispatches may hold before the
+        # host waits for the oldest (``_throttle_inflight``); 0: no waits
+        self.inflight_budget_mb = int(inflight_budget_mb)
+        self._inflight = collections.deque()  # (event, buffer, nbytes)
+        self._inflight_bytes = 0
+        self.inflight_peak_bytes = 0  # the most held at once
+        self._pool = {}  # free pinned buffers by size
+        self._pool_shape = None  # the image shape the pool's buffers carry
+        # lookahead hooks that the schedule plugins install at registration
+        # (``pggan_tpu/training/trainer.py:86-99``): images until (depth,
+        # alpha) next changes, images until the running fade ends, the
+        # (depth, alpha) law and the (lr_d, lr_g) law at an image count.
+        # Grouping stays off until they are known.
+        self.schedule_horizon = None
+        self.lr_lookahead = None
+        self.fade_horizon = None
+        self.alpha_lookahead = None
         self.state = state
         self.dataset = dataset
         self.dataiter = dataiter
@@ -88,9 +116,6 @@ class Trainer:
                             "{val:8.3f}", "kimg")
         self._register_stat("tick_stat", self.cur_tick, "{val:5}", "tick")
         self.plugin_queues = {q: [] for q in ("iteration", "epoch", "s", "end")}
-        # the pinned host buffer of the last batch and the event after its
-        # upload, so that the buffer is refilled only once that copy is done
-        self._staging = None
 
     def _register_stat(self, key, val, fmt, name):
         self.stats[key] = {"val": val, "log_epoch_fields": [fmt],
@@ -148,36 +173,162 @@ class Trainer:
     def _device(self) -> torch.device:
         return next(self.G.parameters()).device
 
-    def _upload(self, host: np.ndarray) -> torch.Tensor:
-        """The batch on the step's device. On the card it goes through one
-        pinned host buffer by an asynchronous copy; the buffer is refilled
-        only after the card has read the previous batch out of it."""
-        device = self._device()
-        batch = torch.from_numpy(host)
-        if device.type != "cuda":
-            return batch.to(device)
-        if self._staging is not None:
-            buf, event = self._staging
-            event.synchronize()
-        if self._staging is None or buf.shape != batch.shape \
-                or buf.dtype != batch.dtype:
-            buf = torch.empty(batch.shape, dtype=batch.dtype,
-                              pin_memory=True)
-        buf.copy_(batch)
-        out = buf.to(device, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        self._staging = (buf, event)
-        return out
+    def _world(self) -> int:
+        group = self.builder.group
+        return 1 if group is None else group.world_size
 
-    def _fetch_reals(self, alpha):
-        """The step's reals, (repeats, B, H, W, C) float32 on the device:
-        ``D_training_repeats`` batches from the iterator, uploaded, and, for
-        uint8 batches, cast, faded by ``alpha`` and remapped on the device
-        (``TrainStepBuilder.prep_fn``). Returns ``(reals, batch)``."""
-        raw = np.stack([np.asarray(next(self.dataiter))
-                        for _ in range(self.D_training_repeats)])
-        reals = self._upload(raw)
+    # -- grouped dispatch (pggan_tpu/training/trainer.py:182-289) -------------
+    def _plan_group(self):
+        """``(group, alphas)``: how many steps the next dispatch fuses and,
+        for a grouped fade window, its per-step alpha vector (None
+        otherwise). group > 1 only where exact: a stable window that
+        ``schedule_horizon`` covers whole, or a window wholly inside one
+        fade (``fade_horizon``, each step's alpha cross-checked by
+        ``alpha_lookahead``); never past a tick or the run's end; always
+        exactly ``steps_per_dispatch`` steps, so that a stage has two group
+        graphs at most. ``per`` counts the global batch: the minibatch
+        (global under data parallelism) times ``D_training_repeats``."""
+        spd = self.steps_per_dispatch
+        if (spd <= 1 or self.schedule_horizon is None
+                or self.minibatch_size is None):
+            return 1, None
+        per = self.minibatch_size * self.D_training_repeats
+        alphas = None
+        if self.alpha < 1.0:
+            # step k takes the alpha the DepthManager would have set after
+            # step k - 1, the law at start + k * per; the last one must
+            # still be inside the fade, at the same depth (the law skips
+            # stages when lod_transition_nimg > lod_training_nimg)
+            if self.fade_horizon is None or self.alpha_lookahead is None:
+                return 1, None
+            if self.fade_horizon(self.cur_nimg) <= (spd - 1) * per:
+                return 1, None
+            pairs = [self.alpha_lookahead(self.cur_nimg + k * per)
+                     for k in range(spd)]
+            if any(d != self.depth or a >= 1.0 for d, a in pairs):
+                return 1, None
+            alphas = np.asarray([a for _, a in pairs], np.float32)
+        elif self.schedule_horizon(self.cur_nimg) < spd * per:
+            return 1, None
+        remaining = (self.tick_start_nimg + self.tick_duration_nimg
+                     - self.cur_nimg)
+        if self.total_nimg is not None:
+            remaining = min(remaining, self.total_nimg - self.cur_nimg)
+        if -(-remaining // per) < spd:  # the steps that fit before it
+            return 1, None
+        return spd, alphas
+
+    def _train_grouped(self, group, alphas):
+        """``group`` iterations in one dispatch: one batch a step, the lr
+        ramp through per-step vectors (``lr_lookahead`` at start + k *
+        per), the metrics stacked, the iteration plugins drained once at
+        the final count. ``alphas``: ``_plan_group``'s vector in a fade
+        window, None in a stable one."""
+        start_nimg = self.cur_nimg
+        if alphas is None:
+            alphas = np.full((group,), self.alpha, np.float32)
+        reals, batch, staged = self._fetch_reals(group, alphas)
+        if batch * self._world() != self.minibatch_size:
+            raise RuntimeError(
+                f"grouped dispatch planned for minibatch "
+                f"{self.minibatch_size} but the data iterator served "
+                f"{batch} on each of {self._world()} rank(s); keep them in "
+                f"sync or set steps_per_dispatch=1")
+        per = batch * self._world() * self.D_training_repeats
+        self.cur_nimg += group * per
+        if self.lr_lookahead is not None:
+            pairs = [self.lr_lookahead(start_nimg + k * per)
+                     for k in range(group)]
+            lrs_d = np.asarray([p[0] for p in pairs], np.float32)
+            lrs_g = np.asarray([p[1] for p in pairs], np.float32)
+        else:
+            lrs_d = np.full((group,), self.lr_d, np.float32)
+            lrs_g = np.full((group,), self.lr_g, np.float32)
+
+        gstep = self.builder.group_step_fn(self.depth, batch,
+                                           self.alpha < 1.0, group)
+        metrics = gstep(self.state, reals, alphas, lrs_d, lrs_g)
+        self._dispatched(staged)
+        self.iterations += group
+        self.call_plugins("iteration", self.iterations,
+                          metrics["G_loss"], metrics["D_loss"],
+                          metrics["D_real"], metrics["D_fake"])
+
+    # -- the pinned staging pool and the backpressure ------------------------
+    def _upload(self, raw: list, lead: tuple):
+        """``(tensor, staged)``: the host batches ``raw`` stacked with the
+        leading dims ``lead``, on the step's device, and, on the card,
+        ``(buffer, nbytes)`` of the pinned buffer they were stacked into and
+        copied from asynchronously (None elsewhere). The buffer comes from
+        the pool and goes back once the dispatch that reads it has
+        completed (``_throttle_inflight``)."""
+        device = self._device()
+        shape = lead + raw[0].shape
+        if device.type != "cuda":
+            return torch.from_numpy(np.stack(raw).reshape(shape)), None
+        if raw[0].shape != self._pool_shape:  # a new stage's batches
+            self._pool, self._pool_shape = {}, raw[0].shape
+        nbytes = len(raw) * raw[0].nbytes
+        free = self._pool.setdefault(nbytes, [])
+        buf = free.pop() if free else torch.empty(
+            nbytes, dtype=torch.uint8, pin_memory=True)
+        dtype = torch.from_numpy(np.empty(0, raw[0].dtype)).dtype
+        view = buf.view(dtype).view(shape)
+        np.stack(raw, out=view.numpy().reshape((len(raw),) + raw[0].shape))
+        return view.to(device, non_blocking=True), (buf, nbytes)
+
+    def _dispatched(self, staged) -> None:
+        """After a dispatch: its buffer joins the in-flight deque with an
+        event recorded after its step."""
+        if staged is None:
+            return
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self._device()))
+        self._throttle_inflight(event, *staged)
+
+    def _throttle_inflight(self, event, buffer, nbytes: int) -> None:
+        """The backpressure (``pggan_tpu/training/trainer.py:291-309``):
+        return to the pool, without a wait, the buffers of the dispatches
+        found completed (the oldest first; one stream completes them in
+        order); remember ``(event, buffer, nbytes)`` of this one; then,
+        while the bytes of the unfinished dispatches pass the budget and
+        more than one is in flight, wait for the oldest. The bytes are the
+        pinned buffer's, the batch as shipped."""
+        while self._inflight and self._inflight[0][0].query():
+            self._release()
+        self._inflight.append((event, buffer, int(nbytes)))
+        self._inflight_bytes += int(nbytes)
+        self.inflight_peak_bytes = max(self.inflight_peak_bytes,
+                                       self._inflight_bytes)
+        budget = self.inflight_budget_mb * (1024 * 1024)
+        while (budget and self._inflight_bytes > budget
+               and len(self._inflight) > 1):
+            self._inflight[0][0].synchronize()
+            self._release()
+
+    def _release(self) -> None:
+        """The oldest dispatch has completed: its buffer back to the pool
+        (unless it carried an earlier stage's batches)."""
+        _event, buf, nbytes = self._inflight.popleft()
+        self._inflight_bytes -= nbytes
+        if buf.numel() in self._pool:
+            self._pool[buf.numel()].append(buf)
+
+    def _fetch_reals(self, n_steps, alpha):
+        """The reals of ``n_steps`` steps, f32 on the device: ``n_steps *
+        D_training_repeats`` batches from the iterator, stacked with leading
+        dims ``(n_steps, repeats)`` (``(repeats,)`` for one step), uploaded
+        at once, and, for uint8 batches, cast, faded by ``alpha`` (a number,
+        or one a step) and remapped on the device
+        (``TrainStepBuilder.prep_fn``). The one data path of both dispatch
+        modes (``pggan_tpu/training/trainer.py:311-349``). Returns
+        ``(reals, local batch, staged)``, ``staged`` as ``_upload`` gives
+        it."""
+        repeats = self.D_training_repeats
+        raw = [np.asarray(next(self.dataiter))
+               for _ in range(n_steps * repeats)]
+        lead = (n_steps, repeats) if n_steps > 1 else (repeats,)
+        reals, staged = self._upload(raw, lead)
         if reals.dtype == torch.uint8:
             ds = self.dataset
             prep = self.builder.prep_fn(
@@ -186,20 +337,23 @@ class Trainer:
             reals = prep(reals, alpha)
         elif reals.dtype != torch.float32:
             reals = reals.to(torch.float32)
-        return reals, raw.shape[1]
+        return reals, raw[0].shape[0], staged
 
-    # -- hot loop (reference trainer.py:85-115, one step) ---------------------
+    # -- hot loop (reference trainer.py:85-115) -------------------------------
     def train(self):
-        reals, batch = self._fetch_reals(np.float32(self.alpha))
-        group = self.builder.group
-        world = 1 if group is None else group.world_size
-        self.cur_nimg += batch * world * self.D_training_repeats
+        group, alphas = self._plan_group()
+        if group > 1:
+            self._train_grouped(group, alphas)
+            return
+        reals, batch, staged = self._fetch_reals(1, np.float32(self.alpha))
+        self.cur_nimg += batch * self._world() * self.D_training_repeats
 
         # The stable phase (alpha == 1) runs the blend-free graph.
         step = self.builder.step_fn(self.depth, batch,
                                     fade=self.alpha < 1.0)
         metrics = step(self.state, reals, np.float32(self.alpha),
                        np.float32(self.lr_d), np.float32(self.lr_g))
+        self._dispatched(staged)
 
         self.iterations += 1
         self.call_plugins("iteration", self.iterations,

@@ -84,7 +84,7 @@ def test_replay_matches_the_eager_step(cuda, deterministic_cudnn, fade):
     eager_calls = {k: n - launches.get(k, 0) for k, n in
                    _build.LAUNCHES.items() if n != launches.get(k, 0)}
     step(state, _reals(builder, cuda, 1), alpha, LR, LR)  # capture, replay
-    assert len(builder.graphed_keys()) == 1 and step.capture_s > 0
+    assert len(builder.graphs()) == 1 and step.capture_s > 0
     assert dict(step.captured) == eager_calls and eager_calls
     G2, D2 = copy.deepcopy(G), copy.deepcopy(D)
     twin = init_state(G2, D2, seed=99)
@@ -126,7 +126,7 @@ def test_replays_draw_new_noise(cuda):
     for _ in range(4):
         out = step(state, reals, 0.5, 0.0, 0.0)
         losses.append({k: float(v) for k, v in out.items()})
-    assert len(builder.graphed_keys()) == 1
+    assert len(builder.graphs()) == 1
     assert losses[2] != losses[3]  # two replays
     assert len({tuple(v.values()) for v in losses}) == 4
 
@@ -163,3 +163,51 @@ def test_graph_is_bound_to_its_state(cuda):
     with pytest.raises(ValueError, match="noise"):
         step(state, _reals(builder, cuda, 0), 1.0, LR, LR,
              noise=lambda kind, shape: None)
+
+
+@pytest.mark.parametrize("fade", [True, False])
+def test_group_replay_equals_its_single_replays(cuda, deterministic_cudnn,
+                                                fade):
+    """A group of 3 steps as one graph against 3 replays of the single
+    step's graph from the same state and generator, with per-step alphas
+    and learning rates: the same metrics and updates, bit for bit, and no
+    kernel wrapper called by either replay. The group's capture recorded 3
+    times the single step's kernel calls."""
+    group = 3
+    (G, D), (G2, D2) = _models(cuda), _models(cuda)
+    states = [init_state(G, D, seed=3), init_state(G2, D2, seed=3)]
+    single, grouped = TrainStepBuilder(G, D), TrainStepBuilder(G2, D2)
+    step = single.step_fn(DEPTH, BATCH, fade)
+    gstep = grouped.group_step_fn(DEPTH, BATCH, fade, group)
+    reals = [_reals(single, cuda, k) for k in range(group)]
+    ones = torch.ones(group).numpy()
+    for _ in range(2):  # eager, then the capture and its first replay
+        step(states[0], reals[0], 0.5 if fade else 1.0, LR, LR)
+        gstep(states[1], torch.stack(reals), (0.5 if fade else 1.0) * ones,
+              LR * ones, LR * ones)
+    assert {k: group * n for k, n in step.captured.items()} == \
+        dict(gstep.captured)
+    assert list(grouped.graphs()) == [(DEPTH, BATCH, fade, group)]
+    _copy_state(states[0], states[1])
+    alphas = ([0.2, 0.35, 0.5] if fade else [1.0] * group)
+    lrs = ([LR, 0.8 * LR, 0.6 * LR], [0.3 * LR, 0.5 * LR, 0.7 * LR])
+    before = [p.detach().clone() for p in [*G.parameters(), *D.parameters()]]
+    launches = dict(_build.LAUNCHES)
+    want = []
+    for k in range(group):
+        m = step(states[0], reals[k], alphas[k], lrs[0][k], lrs[1][k])
+        want.append(torch.stack([m[n] for n in sorted(m)]))
+    got = gstep(states[1], torch.stack(reals), torch.tensor(alphas).numpy(),
+                torch.tensor(lrs[0]).numpy(), torch.tensor(lrs[1]).numpy())
+    assert dict(_build.LAUNCHES) == launches
+    assert torch.equal(torch.stack([got[n] for n in sorted(got)], 1),
+                       torch.stack(want))
+    for p0, p, q in zip(before, [*G2.parameters(), *D2.parameters()],
+                        [*G.parameters(), *D.parameters()]):
+        assert torch.equal(p, q)
+    assert any(not torch.equal(p0, p) for p0, p in zip(before,
+                                                       G.parameters()))
+    assert torch.equal(states[0].generator.get_state(),
+                       states[1].generator.get_state())
+    assert int(states[0].g_opt.count) == 2 + group
+    assert int(states[1].g_opt.count) == 2 + group

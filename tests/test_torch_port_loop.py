@@ -132,7 +132,8 @@ LOG_FIELDS = ["tick_stat", "kimg_stat", "depth", "alpha", "lod",
               "minibatch_size", "G_loss", "D_loss", "D_real", "D_fake"]
 
 
-def _drive(trainer_cls, plugin_mod, builder, state, record):
+def _drive(trainer_cls, plugin_mod, builder, state, record,
+           steps_per_dispatch=1):
     """A stub run: depth 0-2, tiny stages, the real plugins (those that need
     no model; the wall-clock monitor's values left out), every plugin call
     recorded with the trainer's clock, and the log lines and exported
@@ -146,7 +147,7 @@ def _drive(trainer_cls, plugin_mod, builder, state, record):
 
     trainer = trainer_cls(torch.nn.Linear(1, 1), None, builder, state, None,
                           None, lambda: None, tick_nimg_default=30,
-                          steps_per_dispatch=1)
+                          steps_per_dispatch=steps_per_dispatch)
     plugs = [plugin_mod.DepthManager(make_iter, None, 2, minibatch_default=4,
                                      minibatch_overrides={1: 3, 2: 2},
                                      tick_kimg_default=0.025,

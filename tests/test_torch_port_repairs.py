@@ -138,7 +138,7 @@ def test_graphed_step_runs_eagerly_on_the_cpu():
     for _ in range(3):
         out = step(state, reals, 0.5, 1e-3, 1e-3)
     step(state, reals, 0.5, 1e-3, 1e-3, noise=lambda k, s: next(draws))
-    assert not builder.graphed_keys() and step.graph is None
+    assert not builder.graphs() and step.graph is None
     assert int(state.d_opt.count) == 4
     assert all(torch.isfinite(v) for v in out.values())
     assert builder.step_fn(1, 2, True) is step

@@ -214,7 +214,7 @@ def test_port_imports_neither_jax_nor_pggan_tpu():
         "new = {'pggan_tpu_torch.' + m for m in ('cli.eval', 'metrics.swd', "
         "'metrics.msssim', 'ops.stft', 'data.native', 'data.audio_io', "
         "'export', 'cli.export', 'utils.profiling', 'parallel', "
-        "'parallel.mesh')}\n"
+        "'parallel.mesh', 'cli.convert')}\n"
         "assert new <= set(sys.modules), new - set(sys.modules)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'pggan_tpu')]\n"
