@@ -36,7 +36,14 @@ dispatch (phase E): a group of 8 depth-8 steps, one CUDA graph replay,
 against 8 single-step replays from one state, and the step time through
 the ``Trainer`` at depths 0, 2, 4 and 8 with 1 and 8 steps a dispatch,
 each key's warm-up and capture, and the pinned bytes held in flight
-against the budget.
+against the budget. ``DepthManager(precompile_ahead=True)`` (phase F,
+last, in a process that has trained at its shapes as a real run has):
+progressive stretches through the ``Trainer`` with the option off and on
+from one state, every key replayed from its first dispatch, with the
+background warm-up and capture seconds, the foreground stall at each key,
+the steps beside a precompile and the peak memory. Where on and off part,
+the stretch runs again with the precompiles on the training thread, and
+both ways with cuDNN off, to show where they part (``PRECOMPILE_BAR``).
 
     python3 chip_smoke.py
 
@@ -52,6 +59,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import json
 import math
 import os
@@ -107,6 +115,20 @@ STEP_GRAD_TOL = dict(rtol=1e-3, scaled_atol=1e-2)
 # capture's, so a baked-in lr is at least 0.4; a bias correction one step
 # stale is 1.6e-2 at the step count there (28, b2 0.99).
 UPDATE_TOL = 1e-3
+# phase F: precompile_ahead on against off over a progressive stretch.
+# Bit for bit, or else all of: (1) the generator states equal and the
+# whole update over the stretch within UPDATE_TOL of its norm; (2) at the
+# first step whose metrics differ they differ by rounding, within
+# STEP_LOSS_RTOL; (3) the same run with the precompiles on the training
+# thread equals off bit for bit (the thread is the only cause); (4) with
+# cuDNN off (and single steps), on equals off bit for bit (the cause is
+# in cuDNN: PyTorch keeps cuDNN's plan picks per thread, so the
+# precompile thread's graphs may run other deterministic plans than the
+# training thread's cache holds).
+PRECOMPILE_BAR = ("bit for bit, or: generator equal and the update within "
+                  "UPDATE_TOL of its norm, the first differing step within "
+                  "STEP_LOSS_RTOL, on the training thread bit for bit, "
+                  "cuDNN off bit for bit")
 REPLAY_ALPHA, REPLAY_LR = 0.3, (0.6e-3, 0.3e-3)
 
 # NHCW shapes of the depth-8 tail, stages 5-7 (256, 512, 1024 px):
@@ -3574,6 +3596,479 @@ def group_phase(torch):
     return out, launches, dict(replayed)
 
 
+# phase F: (name, first depth, last depth, per-depth batches, images a
+# stage); every stage is long enough for one group of GROUP and some
+# single steps (the batch 14 stage at depth 6 for single steps only)
+PRECOMPILE_STRETCHES = (("low", 0, 2, {}, 10 * 16),
+                        ("dear", 6, TRAIN_DEPTH, {6: 14, 7: 6, 8: 3}, 66))
+
+
+class KeyRecorder:
+    """The step key of each of a trainer's dispatches, in order (its
+    ``_await_precompile``, which every dispatch calls with its key,
+    wrapped on the instance)."""
+
+    def __init__(self, trainer):
+        self.keys = []
+        wait = trainer._await_precompile
+
+        def record(key):
+            self.keys.append(key)
+            wait(key)
+        trainer._await_precompile = record
+
+
+def progressive_trainer(torch, state, builder, dataset, stretch, precompile,
+                        steps_per_dispatch=GROUP):
+    """A ``Trainer`` on ``state`` at the start of a stretch of
+    PRECOMPILE_STRETCHES, ``steps_per_dispatch`` steps a dispatch where the
+    schedule holds,
+    with the DepthManager (uint8 batches of one item, so that every run
+    sees the same data; ``precompile_ahead`` as given), the lr schedule
+    and a plugin that keeps every dispatch's metrics."""
+    from pggan_tpu_torch.data.loader import DataIterator
+    from pggan_tpu_torch.training.plugins import (DepthManager, LRScheduler,
+                                                  Plugin)
+    from pggan_tpu_torch.training.trainer import Trainer
+    _, first, last, batches, lod = stretch
+    start = max(0, 2 * first * lod)  # the first depth's stable stage
+    trainer = Trainer(state.G, state.D, builder, state, dataset, None, None,
+                      resume_nimg=start, tick_nimg_default=10 ** 9,
+                      steps_per_dispatch=steps_per_dispatch)
+    rows = []
+
+    class Keep(Plugin):
+        def iteration(self, idx, *losses):
+            rows.append(torch.stack([torch.as_tensor(v).reshape(-1)
+                                     for v in losses]).clone())
+    trainer.register_plugin(DepthManager(
+        lambda bs: DataIterator(dataset, bs, num_workers=1, seed=SEED,
+                                raw=True),
+        None, TRAIN_DEPTH, minibatch_default=16, minibatch_overrides=batches,
+        tick_kimg_default=10 ** 6, lod_training_nimg=lod,
+        lod_transition_nimg=lod, precompile_ahead=precompile))
+    trainer.register_plugin(LRScheduler(LR, LR, rampup_kimg=0))
+    trainer.register_plugin(Keep([(1, "iteration")]))
+    trainer.total_nimg = (2 * last + 1) * lod  # the last depth's stable end
+    return trainer, rows
+
+
+class InlineExecutor:
+    """An executor for a builder's precompiles that runs each on the
+    calling thread, the training thread, when it is queued."""
+
+    def submit(self, fn, *args, **kwargs):
+        import concurrent.futures
+        future = concurrent.futures.Future()
+        try:
+            future.set_result(fn(*args, **kwargs))
+        except Exception as e:  # raised at the key's dispatch
+            future.set_exception(e)
+        return future
+
+    def shutdown(self, wait=True, cancel_futures=False):
+        pass
+
+
+def precompile_run(torch, stretch, start_sd, precompile, inline=False,
+                   steps_per_dispatch=GROUP):
+    """One run of a stretch from the state ``start_sd`` (None: a fresh
+    state from SEED, whose dict the result keeps), the precompiles on the
+    builder's thread, or with ``inline`` on the training thread: each
+    dispatch's key, steps, host seconds, device ms (CUDA events around it
+    on the training stream) and whether a precompile was queued or running
+    during it (``steps_per_dispatch`` where the schedule holds); the final
+    state, the metrics, the peak device memory, the
+    kernel wrappers' launches in the foreground and on the warm-up stream,
+    and each key's graphed step."""
+    from pggan_tpu_torch import checkpoint
+    from pggan_tpu_torch.data.datasets import SyntheticDataset
+    from pggan_tpu_torch.ops import _build
+    from pggan_tpu_torch.training import TrainStepBuilder, init_state
+    G, D = paper_models(torch, "cuda")
+    state = init_state(G, D, seed=SEED)
+    if start_sd is None:
+        start_sd = checkpoint.training_state_dict(state)
+    checkpoint.restore_training_state(state, start_sd)
+    params = [*G.parameters(), *D.parameters()]
+    before = [p.detach().clone() for p in params]
+    builder = TrainStepBuilder(G, D)
+    if inline:
+        builder._worker = InlineExecutor()
+    dataset = SyntheticDataset(resolution=G.dataset_shape[-1], num_items=1,
+                               seed=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    launches = sum(_build.LAUNCHES.values())
+    t0 = time.perf_counter()
+    trainer, metrics = progressive_trainer(torch, state, builder, dataset,
+                                           stretch, precompile,
+                                           steps_per_dispatch)
+    keys = KeyRecorder(trainer)
+    dispatches = []
+
+    def alive():
+        return any(not f.done() for f in builder._precompiles.values())
+    try:
+        while trainer.cur_nimg < trainer.total_nimg:
+            was_alive, n = alive(), trainer.iterations
+            events = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+            events[0].record()
+            t1 = time.perf_counter()
+            trainer.train()
+            host_s = time.perf_counter() - t1
+            events[1].record()
+            dispatches.append({"key": keys.keys[-1],
+                               "steps": trainer.iterations - n,
+                               "host_s": host_s, "events": events,
+                               "overlap": was_alive or alive()})
+        builder.join_precompiles()
+        torch.cuda.synchronize()
+    finally:
+        trainer.dataiter.close()
+        dataset.close()
+    for d in dispatches:
+        a, b = d.pop("events")
+        d["device_ms"] = a.elapsed_time(b)
+    return {"start_sd": start_sd, "state": state,
+            "before": before, "params": params,
+            "builder": builder, "metrics": metrics,
+            "dispatches": dispatches, "run_s": time.perf_counter() - t0,
+            "peak_bytes": torch.cuda.max_memory_allocated() - resident,
+            "foreground_launches": sum(_build.LAUNCHES.values()) - launches,
+            "warm_launches": collections.Counter(builder.precompile_launches)}
+
+
+def precompile_compare(torch, off, on) -> dict:
+    """On against off over one stretch: the same dispatches; whether the
+    final states (every tensor, the generator) and every dispatch's
+    metrics are equal bit for bit; the first step whose metrics differ,
+    with the largest relative difference of its metrics (rounding, or
+    more) and the largest over the stretch; the parameter updates over the
+    stretch (``update_errors``). On the precompiled run no eager step in
+    the foreground (no kernel wrapper launched there, no eager first call
+    at a key) and every dispatched key replayed from its first
+    dispatch."""
+    if [d["key"] for d in on["dispatches"]] != \
+            [d["key"] for d in off["dispatches"]]:
+        raise AssertionError("the runs dispatched other keys")
+    a, b = on["state"], off["state"]
+    bitwise = all(torch.equal(x, y) for x, y in zip(a.tensors(),
+                                                    b.tensors()))
+    gen = torch.equal(a.generator.get_state(), b.generator.get_state())
+    got, want = (torch.cat(r["metrics"], 1) for r in (on, off))
+    metrics_bitwise = bool(torch.equal(got, want))
+    differ = (got != want).any(0).nonzero().flatten().tolist()
+    first_rel = None
+    if differ:
+        k = differ[0]
+        first_rel = float(((got[:, k] - want[:, k]).abs()
+                           / want[:, k].abs().clamp_min(1e-30)).max())
+    with torch.no_grad():
+        errs = update_errors(torch, off["before"], on["params"],
+                             off["params"])
+    dispatched = collections.Counter(d["key"] for d in on["dispatches"])
+    steps = on["builder"]._steps
+    for key, n in dispatched.items():
+        step = steps[key]
+        if not step.ahead or step.eager_s is not None or step.replays != n:
+            raise AssertionError(f"{key}: ahead {step.ahead}, foreground "
+                                 f"eager {step.eager_s}, {step.replays} "
+                                 f"replays of {n} dispatches")
+        if off["builder"]._steps[key].eager_s is None:
+            raise AssertionError(f"{key}: no eager first call without the "
+                                 f"precompile")
+    if on["foreground_launches"]:
+        raise AssertionError(f"the precompiled run launched "
+                             f"{on['foreground_launches']} kernel wrappers "
+                             f"in the foreground")
+    return {"state_bitwise": bitwise and gen, "generator_equal": gen,
+            "metrics_bitwise": metrics_bitwise, "steps": got.shape[1],
+            "first_step_metrics_differ": differ[0] if differ else None,
+            "steps_metrics_differ": len(differ),
+            "first_differing_step_metric_rel_diff": first_rel,
+            "metric_max_abs_diff": float((got - want).abs().max()),
+            **errs, "dispatched_keys": len(dispatched)}
+
+
+def exact(row) -> bool:
+    return row["state_bitwise"] and row["metrics_bitwise"]
+
+
+def card_memory(torch) -> dict:
+    free, total = torch.cuda.mem_get_info()
+    return {"free_bytes": free, "total_bytes": total,
+            "reserved_bytes": torch.cuda.memory_reserved(),
+            "allocated_bytes": torch.cuda.memory_allocated()}
+
+
+def release(torch) -> None:
+    """Free the graphs and tensors no longer reachable, their reference
+    cycles included, and return the allocator's cache to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def precompile_stretch(torch, stretch) -> tuple:
+    """Phase F on one stretch: off, then on, from one state; where they
+    part, the stretch again with the precompiles on the training thread,
+    and off and on with cuDNN off, held to PRECOMPILE_BAR. Returns the
+    row, the warm-ups' launches and the kernels the precompiled graphs'
+    replays ran."""
+    off = precompile_run(torch, stretch, None, False)
+    start_sd = off["start_sd"]
+    on = precompile_run(torch, stretch, start_sd, True)
+    row = {**precompile_compare(torch, off, on), **precompile_timing(off, on)}
+    warm, replayed = on["warm_launches"], replayed_kernels(on["builder"])
+    del on
+    release(torch)
+    if not exact(row):
+        inline = precompile_run(torch, stretch, start_sd, True, inline=True)
+        row["training_thread"] = precompile_compare(torch, off, inline)
+        del inline
+    del off
+    release(torch)
+    if not exact(row):
+        # single steps: with cuDNN off a group's graph failed to
+        # instantiate on the card (out of memory)
+        with torch.backends.cudnn.flags(enabled=False, deterministic=True,
+                                        allow_tf32=False):
+            runs = [precompile_run(torch, stretch, start_sd, p,
+                                   steps_per_dispatch=1)
+                    for p in (False, True)]
+            row["cudnn_off"] = precompile_compare(torch, *runs)
+            row["cudnn_off"]["run_s"] = {"off": runs[0]["run_s"],
+                                         "on": runs[1]["run_s"]}
+        del runs
+        release(torch)
+        rel = row["first_differing_step_metric_rel_diff"]
+        held = (row["generator_equal"]
+                and row["update_err_over_total_norm"] <= UPDATE_TOL
+                and rel is not None and rel <= STEP_LOSS_RTOL
+                and exact(row["training_thread"]) and exact(row["cudnn_off"]))
+        if not held:
+            raise AssertionError(f"precompile on against off, not bit for "
+                                 f"bit and outside the bar "
+                                 f"({PRECOMPILE_BAR}): {row}")
+    return row, warm, replayed
+
+
+def precompile_timing(off, on) -> dict:
+    """Per key: the precompile's background warm-up and capture seconds,
+    and the foreground host seconds of its first two dispatches, on and
+    off; the device ms a step of the dispatches during which a
+    precompile thread was alive (the first two at a key left out in both
+    runs), on against the same dispatches off; the peak memory."""
+    seen, fore = collections.Counter(), {}
+    overlap = {"steps": 0, "on_ms": 0.0, "off_ms": 0.0, "dispatches": 0}
+    for d_on, d_off in zip(on["dispatches"], off["dispatches"]):
+        key = str(d_on["key"])
+        seen[key] += 1
+        if seen[key] <= 2:
+            fore.setdefault(key, {"on_s": [], "off_s": []})
+            fore[key]["on_s"].append(d_on["host_s"])
+            fore[key]["off_s"].append(d_off["host_s"])
+        elif d_on["overlap"]:
+            overlap["dispatches"] += 1
+            overlap["steps"] += d_on["steps"]
+            overlap["on_ms"] += d_on["device_ms"]
+            overlap["off_ms"] += d_off["device_ms"]
+    if overlap["steps"]:
+        overlap["on_ms_per_step"] = overlap["on_ms"] / overlap["steps"]
+        overlap["off_ms_per_step"] = overlap["off_ms"] / overlap["steps"]
+    background = {str(k): {"warm_s": s.warm_s, "capture_s": s.capture_s}
+                  for k, s in sorted(on["builder"]._steps.items())
+                  if getattr(s, "ahead", False)}
+    return {"background": background, "first_dispatches": fore,
+            "overlap": overlap,
+            "peak_bytes": {"on": on["peak_bytes"], "off": off["peak_bytes"]},
+            "run_s": {"on": on["run_s"], "off": off["run_s"]}}
+
+
+def precompile_nccl(torch) -> dict:
+    """Phase F under phase A's one-rank NCCL group (a ``FileStore``), depth
+    8, batch 3, fade, cuDNN deterministic: three calls of the step from
+    one state without a precompile (eager, capture + replay, replay) and
+    with one (``precompile_ahead``: the warm-up in the background, of the
+    rank's batch alone, without a collective; the capture at the first
+    call on this thread, then replays). The states, generator and metrics
+    are held to each other as in ``precompile_compare``, and no
+    collective is called off this thread."""
+    import threading
+
+    import torch.distributed as dist
+    from pggan_tpu_torch import checkpoint
+    from pggan_tpu_torch.ops import _build
+    from pggan_tpu_torch.parallel import Group
+    from pggan_tpu_torch.training import TrainStepBuilder, init_state
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+        rank=0, world_size=1)
+    key = (TRAIN_DEPTH, TRAIN_BATCH, True)
+    runs, start_sd, out = {}, None, {}
+    try:
+        group = Group.current(torch.device("cuda", 0))
+        for precompile in (False, True):
+            G, D = paper_models(torch, "cuda")
+            state = init_state(G, D, seed=SEED, group=group)
+            if start_sd is None:
+                start_sd = checkpoint.training_state_dict(state)
+            checkpoint.restore_training_state(state, start_sd)
+            params = [*G.parameters(), *D.parameters()]
+            before = [p.detach().clone() for p in params]
+            builder = TrainStepBuilder(G, D, group=group)
+            prep = builder.prep_fn()
+            u8 = [uint8_reals(torch, builder, TRAIN_DEPTH, SEED + k).cuda()
+                  for k in range(3)]
+            if precompile:
+                t0 = time.perf_counter()
+                elsewhere, all_reduce = [], dist.all_reduce
+
+                def spy(*args, **kwargs):
+                    if threading.current_thread() is not \
+                            threading.main_thread():
+                        elsewhere.append(threading.current_thread().name)
+                    return all_reduce(*args, **kwargs)
+                dist.all_reduce = spy
+                try:
+                    builder.precompile_ahead([key + (None,)], state)
+                    builder.await_precompile(key)
+                finally:
+                    dist.all_reduce = all_reduce
+                out["precompile_wait_s"] = time.perf_counter() - t0
+                out["collectives_off_the_training_thread"] = len(elsewhere)
+                if elsewhere or builder._steps[key].graph is not None:
+                    raise AssertionError(f"collectives off the training "
+                                         f"thread {elsewhere}, or a capture "
+                                         f"ahead under a process group")
+            step = builder.step_fn(*key)
+            metrics, host = [], []
+            launches = sum(_build.LAUNCHES.values())
+            for x in u8:
+                t0 = time.perf_counter()
+                m = step(state, prep(x, 0.5), 0.5, LR, LR)
+                torch.cuda.synchronize()
+                host.append(time.perf_counter() - t0)
+                metrics.append(torch.stack([m[n] for n in METRICS]).clone())
+            runs[precompile] = {"state": state,
+                                "before": before, "params": params,
+                                "metrics": [torch.stack(metrics, 1)],
+                                "builder": builder,
+                                "dispatches": [{"key": key}] * 3,
+                                "foreground_launches":
+                                    sum(_build.LAUNCHES.values()) - launches}
+            out["on" if precompile else "off"] = {
+                "host_s": host, "eager_s": step.eager_s,
+                "warm_s": step.warm_s, "capture_s": step.capture_s,
+                "replays": step.replays}
+        out.update(precompile_compare(torch, runs[False], runs[True]))
+        if not out["generator_equal"] or not exact(out) and \
+                out["update_err_over_total_norm"] > UPDATE_TOL:
+            raise AssertionError(f"precompile on against off under the "
+                                 f"NCCL group: {out}")
+        replayed = replayed_kernels(runs[True]["builder"])
+    finally:
+        runs.clear()
+        dist.destroy_process_group()
+    log(f"  one-rank NCCL group, {key}: on against off "
+        + ("bit for bit" if out["state_bitwise"] and out["metrics_bitwise"]
+           else f"within {out['update_err_over_total_norm']:.2e} of the "
+           f"update's norm")
+        + f"; warm-up without a collective "
+        f"{out['on']['warm_s']:.3f} s in the background, capture at the "
+        f"first call {out['on']['capture_s']:.3f} s; first calls on "
+        f"{', '.join(f'{x:.3f}' for x in out['on']['host_s'])} s, off "
+        f"{', '.join(f'{x:.3f}' for x in out['off']['host_s'])} s")
+    return out, replayed
+
+
+def precompile_phase(torch):
+    """Phase F: each of PRECOMPILE_STRETCHES through the ``Trainer`` and
+    ``DepthManager``, twice from one state with cuDNN's deterministic
+    algorithms: ``precompile_ahead`` off, then on (``precompile_stretch``,
+    ``precompile_timing``); then the one-rank NCCL check. Returns the
+    numbers, the kernel wrappers' launches on the warm-up stream and the
+    kernels the precompiled graphs' replays ran."""
+    t0 = time.perf_counter()
+    out = {"bar": PRECOMPILE_BAR, "memory_at_start": card_memory(torch)}
+    # the earlier phases' builders, unreachable but held in reference
+    # cycles (a builder and its graphed steps), keep their graph pools
+    # until a collection: a real run holds one builder's graphs
+    release(torch)
+    out["memory_after_collection"] = card_memory(torch)
+    for when, m in (("at the start", out["memory_at_start"]),
+                    ("after collecting the earlier phases' unreachable "
+                     "graphs", out["memory_after_collection"])):
+        log(f"  {when}: {m['free_bytes'] / 2**30:.2f} of "
+            f"{m['total_bytes'] / 2**30:.2f} GiB free on the card, "
+            f"{m['reserved_bytes'] / 2**30:.2f} GiB reserved by this "
+            f"process's allocator")
+    warm, replayed = collections.Counter(), collections.Counter()
+    torch.backends.cudnn.deterministic = True
+    try:
+        for stretch in PRECOMPILE_STRETCHES:
+            name, first, last, batches, lod = stretch
+            row, w, r = precompile_stretch(torch, stretch)
+            row = {"depths": [first, last], "batches": batches,
+                   "images_a_stage": lod, **row}
+            warm += w
+            replayed += r
+            log_stretch(name, row)
+            out[name] = row
+        out["nccl_one_rank"], nccl_replayed = precompile_nccl(torch)
+        replayed += nccl_replayed
+    finally:
+        torch.backends.cudnn.deterministic = False
+    out["phase_s"] = time.perf_counter() - t0
+    for kernel in TRAIN_KERNELS:
+        if not warm.get(kernel) or not replayed.get(kernel):
+            raise AssertionError(f"{kernel} was never launched by a "
+                                 f"precompile's warm-up, or never replayed")
+    return out, dict(warm), dict(replayed)
+
+
+def log_stretch(name, row) -> None:
+    """Phase F's lines for one stretch."""
+    def parted(r):
+        return ("bit for bit" if exact(r) else
+                f"parted at step {r['first_step_metrics_differ']} of "
+                f"{r['steps']} (metrics "
+                f"{r['first_differing_step_metric_rel_diff']:.2e} apart "
+                f"there, {r['steps_metrics_differ']} steps differ, "
+                f"largest {r['metric_max_abs_diff']:.2e}; the update "
+                f"{r['update_err_over_total_norm']:.2e} of its norm apart)"
+                if r["first_step_metrics_differ"] is not None else
+                f"metrics bit for bit, state not (the update "
+                f"{r['update_err_over_total_norm']:.2e} of its norm apart)")
+    first, last = row["depths"]
+    log(f"  {name} stretch, depth {first} to {last}: on against off "
+        f"{parted(row)}; {row['dispatched_keys']} keys, each replayed from "
+        f"its first dispatch; run {row['run_s']['off']:.1f} / "
+        f"{row['run_s']['on']:.1f} s off / on; peak "
+        f"{row['peak_bytes']['off'] / 2**30:.2f} / "
+        f"{row['peak_bytes']['on'] / 2**30:.2f} GiB")
+    if "training_thread" in row:
+        log(f"    precompiles on the training thread against off: "
+            f"{parted(row['training_thread'])}; cuDNN off, on against off: "
+            f"{parted(row['cudnn_off'])} (runs "
+            f"{row['cudnn_off']['run_s']['off']:.1f} / "
+            f"{row['cudnn_off']['run_s']['on']:.1f} s)")
+    for key, f in row["first_dispatches"].items():
+        bg = row["background"].get(key, {})
+        log(f"    {key}: first dispatches off "
+            f"{', '.join(f'{x:.3f}' for x in f['off_s'])} s, on "
+            f"{', '.join(f'{x:.3f}' for x in f['on_s'])} s; in the "
+            f"background warm-up {bg.get('warm_s') or 0:.3f} s, "
+            f"capture {bg.get('capture_s') or 0:.3f} s")
+    ov = row["overlap"]
+    if ov["steps"]:
+        log(f"    {ov['dispatches']} dispatches ({ov['steps']} steps) "
+            f"beside a precompile: {ov['on_ms_per_step']:.2f} ms a "
+            f"step, the same steps off {ov['off_ms_per_step']:.2f}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3782,6 +4277,18 @@ def main() -> int:
     group, group_launches, group_replayed = group_phase(torch)
     log(f"phase E passed ({time.perf_counter() - t_start:.0f} s so far)")
 
+    # phase F: DepthManager(precompile_ahead=True), last: the process has
+    # trained at its shapes, on this thread, as a real run's has
+    log(f"phase F: the Trainer and DepthManager with precompile_ahead off and "
+        f"on from one state, cuDNN deterministic, "
+        + "; ".join(f"depth {a} to {b} ({lod} images a stage)"
+                    for _, a, b, _, lod in PRECOMPILE_STRETCHES)
+        + f", {GROUP} steps a dispatch, on {card}")
+    precompile, precompile_launches, precompile_replayed = \
+        precompile_phase(torch)
+    log(f"phase F passed ({time.perf_counter() - t_start:.0f} s so far; "
+        f"phase F {precompile['phase_s']:.1f} s)")
+
     # the result lines. ms, plain_ms, library_ms and the bounds: per
     # depth-8 fade train step (batch 3) for the kernels the step runs, per
     # depth-8 serve forward (batch 16) for the serve-only chain
@@ -3791,7 +4298,8 @@ def main() -> int:
     # bf16 paths, phase A's eager calls under the NCCL group, phase B's
     # compared steps on both gloo ranks, phase C's resumed torchrun run,
     # phase D's two-replica serves, phase E's eager first calls of its
-    # steps and groups); by path beside it, with the kernels
+    # steps and groups, phase F's warm-ups on the precompile's stream); by
+    # path beside it, with the kernels
     # the runs' graph replays ran
     kernels = []
     print(json.dumps({"conv_shapes": checks.shape_rows,
@@ -3821,7 +4329,9 @@ def main() -> int:
                    "torchrun_cli_replayed": torchrun_replayed.get(name, 0),
                    "sample_two_replicas": replica_launches.get(name, 0),
                    "grouped": group_launches.get(name, 0),
-                   "grouped_replayed": group_replayed.get(name, 0)}
+                   "grouped_replayed": group_replayed.get(name, 0),
+                   "precompile": precompile_launches.get(name, 0),
+                   "precompile_replayed": precompile_replayed.get(name, 0)}
         log(f"  {name}: launches by path {by_path}")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -3855,6 +4365,7 @@ def main() -> int:
     for phase, result in dp.items():
         print(json.dumps({phase: {**result, "card": card_line}}))
     print(json.dumps({"group": {**group, "card": card_line}}))
+    print(json.dumps({"precompile": {**precompile, "card": card_line}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

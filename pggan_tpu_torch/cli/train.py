@@ -38,8 +38,11 @@ directory (log, metrics, samples, checkpoints). ``--num_devices``, when
 set, must equal the world size. ``--data_parallel False`` refuses a launch
 of several ranks.
 
-``--debug_nans`` turns on autograd's anomaly detection. ``--DepthManager.precompile_ahead True`` raises: a graph
-is captured after a real step of its stage.
+``--debug_nans`` turns on autograd's anomaly detection.
+``--DepthManager.precompile_ahead True`` (off by default, as in the JAX
+CLI) makes the steps a stage needs next ready in a background thread: a
+warm-up on a scratch copy of the state, then the graph's capture, so that
+the first dispatch at such a key replays (``training/steps.py``).
 """
 
 from __future__ import annotations
@@ -483,6 +486,9 @@ def main(params):
                        f"batch, fade[, group]) {keys}; peak device memory "
                        f"{torch.cuda.max_memory_allocated(device)} B")
     finally:
+        # a precompile still queued, for a stage the run did not reach or
+        # after a failure, is dropped; one running ends before the process
+        trainer.builder.join_precompiles(cancel=True)
         if hasattr(trainer.dataiter, "close"):
             trainer.dataiter.close()
         trainer.dataset.close()

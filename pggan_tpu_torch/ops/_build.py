@@ -18,7 +18,13 @@ raises on any nonzero code. ``launch`` also counts each launch by kernel
 name in ``LAUNCHES``, which is how a run shows that its main path went
 through the kernels. A call made while the stream is being captured into
 a CUDA graph only records the kernel, which then runs at each replay
-without a call: it counts in ``CAPTURED`` instead. A kernel launches on
+without a call: it counts in ``CAPTURED`` instead. A launch on a stream
+that a caller registered in ``STREAM_COUNTS`` (its raw handle -> a
+``Counter`` the caller owns) counts there instead of in ``LAUNCHES``, so
+that work beside the main path on a stream of its own never shows as the
+main path's; the stream, not the thread, decides, since the autograd
+engine launches a backward's kernels from a thread of its own. A kernel
+launches on
 the current stream of its tensors' device, with that device made current
 for the call: the runtime launches on the current device, and a replica
 of a model on another card than the current one must not be launched
@@ -71,6 +77,8 @@ _SIGNATURES = {
 LAUNCHES: collections.Counter = collections.Counter()
 # kernels recorded into CUDA graphs per kernel name (run at each replay)
 CAPTURED: collections.Counter = collections.Counter()
+# launches on a stream some caller counts apart: raw handle -> its Counter
+STREAM_COUNTS: dict = {}
 _lib = None
 # each C entry point's ctypes function, its argtypes set, on first launch
 _ENTRY: dict = {}
@@ -234,18 +242,21 @@ def launch(name: str, fn: str, device: torch.device, *args) -> None:
     CUDA device of the kernel's tensors; the stream is appended as the last
     argument) with ``device`` made current, raise if the launch failed,
     and count it under ``name`` (in ``CAPTURED`` while a graph capture
-    records it). The ctypes function is looked up and typed on the first
-    call only, so a launch costs one dictionary lookup, the device guard
-    and the foreign call on the host."""
+    records it, in ``STREAM_COUNTS[stream]`` where the stream has one).
+    The ctypes function is looked up and typed on the first call only, so
+    a launch costs one dictionary lookup, the device guard and the foreign
+    call on the host."""
     f = _ENTRY.get(fn) or _entry(fn)
     index = device.index
     with _device_guard(index):
-        err = f(*args, _current_stream(index))
+        stream = _current_stream(index)
+        err = f(*args, stream)
         capturing = _capturing()
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: CUDA error {err} "
                            f"({library().pggan_error_string(err).decode()})")
-    (CAPTURED if capturing else LAUNCHES)[name] += 1
+    counts = CAPTURED if capturing else STREAM_COUNTS.get(stream, LAUNCHES)
+    counts[name] += 1
 
 
 def check_kernel_inputs(*tensors: torch.Tensor, bf16: bool = False) -> None:

@@ -62,9 +62,22 @@ class DepthManager(Plugin):
     {6: 14, 7: 6, 8: 3}), a fresh data iterator at the new resolution, the
     latent generator and the tick length. The trainer then takes the step
     of the new (depth, batch, fade), whose first calls warm and capture its
-    CUDA graph. ``precompile_ahead`` is the JAX package's background
-    compile of the next stage's programs; a graph needs a real warm-up step
-    first, so it raises here.
+    CUDA graph.
+
+    ``precompile_ahead`` (off by default, as in the JAX package) is the
+    JAX package's background compile of the programs a stage will need
+    next (``pggan_tpu/training/plugins.py:135-159``): at each depth change,
+    from registration on, the builder's precompile thread
+    (``pggan-precompile``; JAX starts a thread a stage, here one worker
+    keeps its set-up across stages) makes ready the current depth's stable
+    step and, below ``max_depth``, the next depth's fade step at its
+    minibatch, each as the trainer will dispatch it: the single step, and
+    the group of ``trainer.steps_per_dispatch`` steps where that is above
+    1 (``TrainStepBuilder.precompile_ahead``: a warm-up on a scratch copy
+    of the state, then the graph's capture). Where the JAX package prints
+    a failed compile and carries on, here a failure is kept by key and
+    raised at that key's first dispatch: a capture that fails raises, and
+    nothing falls back.
     """
 
     def __init__(self,
@@ -82,11 +95,7 @@ class DepthManager(Plugin):
                  precompile_ahead=False,
                  lr_reference_minibatch=None):
         super().__init__([(1, "iteration")])
-        if precompile_ahead:
-            raise NotImplementedError(
-                "precompile_ahead: a CUDA graph is captured after a real "
-                "warm-up step of its stage, so there is nothing to compile "
-                "ahead")
+        self.precompile_ahead = precompile_ahead
         self.lr_reference_minibatch = lr_reference_minibatch
         self.create_dataiter_fun = create_dataiter_fun
         self.create_rlg = create_rlg
@@ -136,6 +145,27 @@ class DepthManager(Plugin):
     def lod(self):
         return lod_value(self.depth, self.alpha, self.max_lod, self.depth_offset)
 
+    def _precompile_upcoming(self, depth, minibatch_size):
+        """Start the precompile of the steps this stage needs next: the
+        current depth's stable step and the next depth's fade step, single
+        and grouped as the trainer dispatches them."""
+        trainer = self.trainer
+        builder = getattr(trainer, "builder", None)
+        if builder is None or not hasattr(builder, "precompile_ahead"):
+            return
+        targets = [(depth, minibatch_size, False)]
+        if depth < self.max_depth:
+            next_mb = self.minibatch_overrides.get(depth + 1,
+                                                   self.minibatch_default)
+            targets.append((depth + 1, next_mb, True))
+        spd = trainer.steps_per_dispatch
+        groups = (None,) + ((spd,) if spd > 1 else ())
+        world = 1 if builder.group is None else builder.group.world_size
+        # the step keys hold the local batch
+        builder.precompile_ahead(
+            [(d, mb // world, fade, g) for d, mb, fade in targets
+             for g in groups], trainer.state)
+
     def iteration(self, *args):
         trainer = self.trainer
         depth, alpha = schedule.depth_alpha_schedule(
@@ -166,6 +196,8 @@ class DepthManager(Plugin):
                 ref = self.lr_reference_minibatch
                 ref_mb = ref["overrides"].get(depth, ref["default"])
                 trainer.lr_scale = minibatch_size / ref_mb
+            if self.precompile_ahead:
+                self._precompile_upcoming(depth, minibatch_size)
         if alpha != self.alpha:
             self.alpha = alpha
             trainer.alpha = alpha

@@ -15,6 +15,11 @@ count, the learning rate and both bias corrections live in device tensors
 and are computed there, so a step captured into a CUDA graph reads them at
 every replay instead of baking in the values of the step it recorded.
 
+``scratch_copy`` makes a copy of a state that shares no tensor and no
+generator with it: the precompile ahead of a stage (``steps.py``) warms a
+step up on it, so that the real run, its generator's stream included, is
+never touched.
+
 Under data parallelism (``init_state(..., group=...)``) the parameters,
 buffers and Adam states are replicated from rank 0, and each rank's
 generator is seeded ``seed + rank``, as the JAX CLI seeds each process's
@@ -114,3 +119,31 @@ def init_state(G: nn.Module, D: nn.Module, seed: int = 0, *,
     if group is not None:
         replicate(state.tensors())
     return state
+
+
+def _copy_adam(opt: Adam, params) -> Adam:
+    new = copy.copy(opt)
+    new.params = list(params)
+    new.mu = [t.clone() for t in opt.mu]
+    new.nu = [t.clone() for t in opt.nu]
+    new.count, new._lr = opt.count.clone(), opt._lr.clone()
+    return new
+
+
+def scratch_copy(state: TrainState) -> TrainState:
+    """A copy of ``state`` on its device: both models (parameters and
+    buffers), both Adams, the EMA and a generator of its own that starts
+    where the state's stands. Nothing in it aliases ``state``. On the card
+    the copies are made on the current stream. The copy's D has no process
+    group: its minibatch stddev takes the rank's batch alone."""
+    G = copy.deepcopy(state.G)
+    D = copy.deepcopy(state.D)
+    D.group = None
+    gen = torch.Generator(device=state.generator.device)
+    gen.set_state(state.generator.get_state())
+    return TrainState(
+        G=G, D=D,
+        g_opt=_copy_adam(state.g_opt, G.parameters()),
+        d_opt=_copy_adam(state.d_opt, D.parameters()),
+        generator=gen,
+        g_ema=None if state.g_ema is None else copy.deepcopy(state.g_ema))

@@ -24,6 +24,43 @@ never run at once. A capture that fails raises; nothing falls back to the
 eager route, which stays reachable as ``TrainStepBuilder(...,
 cuda_graphs=False)``. On the CPU every step is eager.
 
+Each graph draws its noise from a generator of its own, registered with
+it, that takes the state's generator state before a replay and gives it
+back after: the same draws as from the state's generator, and no capture
+ever marks the state's generator as being captured, so a capture can run
+on one thread while another replays and draws. Captures record in the
+``thread_local`` mode: the calls that the global mode forbids every
+thread during a capture (an event query, a pinned allocation, NCCL's
+watchdog) stay legal on the other threads. The builder's lock keeps the
+runs of its raw steps (eager calls, warm-ups, captures) one at a time: a
+step's gradient penalty sets the conv Functions' process-wide
+``input_grad_only`` flag (``ops/conv3x3.py``), which a step on another
+thread would read, and the two would leave it set. A replay runs no Python
+and takes no lock.
+
+``precompile`` is the JAX package's ahead-of-time compile of a step
+(``pggan_tpu/training/steps.py:275-298``): for one key it runs the key's
+eager step once on a scratch copy of the state (``state.scratch_copy``),
+on a side stream on the card (the warm-up: cuDNN's plans, the allocator,
+the kernel library), and then, on the card with ``cuda_graphs``, binds
+the key's graph to the real state and captures it into the builder's
+pool. A capture records and runs nothing, so the real state is not
+touched; the key's first call then replays. A group's warm-up is one
+step of its key (the same kernels at the same shapes). ``precompile_ahead``
+queues a list of them, on one scratch copy taken at the call, for the
+builder's precompile thread (one long-lived worker, ``pggan-precompile``,
+that runs them in order); each key's first dispatch waits for its
+precompile (``await_precompile``) and raises its failure there. Under a
+process group the warm-up takes this rank's batch alone, without a
+collective (its numbers are thrown away; its kernels and shapes are the
+step's), so the precompile thread never calls the process group, and the
+capture waits for the key's first dispatch on the training thread: all
+ranks reach it at the same point. PyTorch keeps cuDNN's plan picks per
+thread, and passes over a plan whose workspace does not fit in the free
+memory: near the card's memory limit the precompile thread's graphs may
+run other (deterministic) plans than the training thread's, and the two
+routes then differ in rounding.
+
 ``group_step_fn`` is the JAX package's grouped dispatch
 (``steps.py:202-273``): ``group`` consecutive steps as one program. Step
 k reads the k-th batch of the reals and the k-th entries of the alpha and
@@ -59,7 +96,9 @@ Gloo cannot be captured, so a gloo group on the card takes the eager route
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
+import threading
 import time
 
 import numpy as np
@@ -70,7 +109,7 @@ from pggan_tpu_torch.ops import _build
 from pggan_tpu_torch.ops.primitives import f32_scalar, f32_vector
 from pggan_tpu_torch.parallel import all_reduce_grads, global_mean
 from pggan_tpu_torch.sampling import disable_tf32
-from pggan_tpu_torch.training.state import TrainState
+from pggan_tpu_torch.training.state import TrainState, scratch_copy
 
 
 @contextlib.contextmanager
@@ -95,8 +134,12 @@ def _grads(loss, params):
 
 def _default_noise(state: TrainState):
     """Draws from the state's device generator."""
+    return _generator_noise(state.generator)
+
+
+def _generator_noise(gen: torch.Generator):
+    """Draws from ``gen``."""
     def noise(kind: str, shape) -> torch.Tensor:
-        gen = state.generator
         if kind == "normal":
             return torch.randn(shape, generator=gen, device=gen.device)
         if kind == "uniform":
@@ -120,21 +163,43 @@ def _set(static: torch.Tensor, value) -> None:
 class _GraphedStep:
     """One (depth, batch, fade) step, or ``n_steps`` of them as a group, on
     the card: eager on its first call, captured into a CUDA graph and
-    replayed on its second, replayed after. Alpha and the learning rates
-    are numbers for a step and (n_steps,) vectors for a group. The graph is
-    bound to the state of the first call and returns the same static
-    metric tensors at every replay, which the next replay overwrites:
-    clone what must outlive it."""
+    replayed on its second, replayed after; or, once ``precompile`` has
+    warmed it up and captured it ahead, replayed from its first call.
+    Alpha and the learning rates are numbers for a step and (n_steps,)
+    vectors for a group. The graph is bound to the state of the first call
+    (or of the precompile) and returns the same static metric tensors at
+    every replay, which the next replay overwrites: clone what must
+    outlive it."""
 
     def __init__(self, raw, builder, n_steps=None):
         self.raw, self.builder, self.n_steps = raw, builder, n_steps
         self.state = None
-        self.warm = False  # the eager first call has run
+        self.warm = False  # an eager call (or a precompile's warm-up) ran
+        self.ahead = False  # warmed up (and captured) by a precompile
         self.graph = None
         self.out = None  # the graph's static metrics
+        self.eager_s = None  # host seconds of an eager first call here
+        self.warm_s = None  # host seconds of the precompile's warm-up
         self.capture_s = None  # host seconds of the capture
         self.captured = None  # kernel wrapper calls recorded, by kernel
         self.replays = 0
+
+    def _bind(self, state, shape, device) -> None:
+        """Bind to ``state``: the static reals of ``shape``, the static
+        scalars and the graph's own generator."""
+        if self.state is None:
+            self.state = state
+            self.reals = torch.empty(shape, device=device)
+            size = (3,) if self.n_steps is None else (3, self.n_steps)
+            self.scalars = torch.zeros(size, dtype=torch.float32,
+                                       device=device)
+            self.gen = torch.Generator(device=device)
+        elif state is not self.state:
+            raise ValueError("this graphed step is bound to the state of its "
+                             "first call")
+        if tuple(shape) != tuple(self.reals.shape):
+            raise ValueError(f"reals {tuple(shape)}, expected "
+                             f"{tuple(self.reals.shape)}")
 
     def __call__(self, state, reals, alpha, lr_d, lr_g, noise=None):
         if reals.device.type != "cuda":
@@ -143,18 +208,7 @@ class _GraphedStep:
             raise ValueError("a graphed step draws from the state's "
                              "generator; pass noise to the eager route "
                              "(TrainStepBuilder(..., cuda_graphs=False))")
-        if self.state is None:
-            self.state = state
-            self.reals = torch.empty_like(reals)
-            shape = (3,) if self.n_steps is None else (3, self.n_steps)
-            self.scalars = torch.zeros(shape, dtype=torch.float32,
-                                       device=reals.device)
-        elif state is not self.state:
-            raise ValueError("this graphed step is bound to the state of its "
-                             "first call")
-        if reals.shape != self.reals.shape:
-            raise ValueError(f"reals {tuple(reals.shape)}, expected "
-                             f"{tuple(self.reals.shape)}")
+        self._bind(state, reals.shape, reals.device)
         self.reals.copy_(reals)
         for static, value in zip(self.scalars, (alpha, lr_d, lr_g)):
             _set(static, value)
@@ -162,30 +216,43 @@ class _GraphedStep:
         if self.graph is None:
             if not self.warm:
                 self.warm = True  # the first call: a real, eager step
-                return self.raw(*args)
-            self.graph = self._capture(args)
+                t0 = time.perf_counter()
+                out = self.raw(*args)
+                self.eager_s = time.perf_counter() - t0
+                return out
+            self._capture(args)
+        self.gen.set_state(state.generator.get_state())
         self.graph.replay()
+        state.generator.set_state(self.gen.get_state())
         self.replays += 1
         return self.out
 
-    def _capture(self, args):
-        state = args[0]
+    def _capture(self, args) -> None:
+        """Record the step on ``args`` into a graph in the builder's pool,
+        on the builder's capture stream, ordered after the work queued on
+        the current stream; the current stream then waits for the
+        capture's own set-up (its generators' seed and offset fills)."""
+        device = args[1].device
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(state.generator)
-        torch.cuda.synchronize()
-        before = collections.Counter(_build.CAPTURED)
-        t0 = time.perf_counter()
-        # under a process group NCCL's watchdog thread queries the events
-        # of earlier collectives, which a capture in the global mode forbids
-        # to every thread: hold the capture's checks to this thread
-        mode = "global" if self.builder.group is None else "thread_local"
-        with torch.cuda.graph(graph, pool=self.builder.graph_pool(),
-                              capture_error_mode=mode):
-            self.out = self.raw(*args)
-        torch.cuda.synchronize()
-        self.capture_s = time.perf_counter() - t0
-        self.captured = _build.CAPTURED - before
-        return graph
+        graph.register_generator_state(self.gen)
+        stream = self.builder.stream("capture", device)
+        current = torch.cuda.current_stream(device)
+        with self.builder.lock:
+            stream.wait_stream(current)
+            before = collections.Counter(_build.CAPTURED)
+            t0 = time.perf_counter()
+            with torch.cuda.stream(stream):
+                graph.capture_begin(pool=self.builder.graph_pool(),
+                                    capture_error_mode="thread_local")
+                try:
+                    self.out = self.raw(*args, _generator_noise(self.gen))
+                finally:
+                    graph.capture_end()
+            stream.synchronize()
+            self.capture_s = time.perf_counter() - t0
+            self.captured = _build.CAPTURED - before
+            current.wait_stream(stream)
+            self.graph = graph
 
 
 class TrainStepBuilder:
@@ -217,6 +284,13 @@ class TrainStepBuilder:
         D.group = group
         self._steps: dict = {}
         self._pool = None
+        self._streams: dict = {}
+        # raw steps and captures, one at a time (module docstring)
+        self.lock = threading.RLock()
+        self._precompiles: dict = {}  # key -> Future, until its 1st dispatch
+        self._worker = None  # the precompile thread's executor
+        # kernel wrappers launched by the warm-ups on the card
+        self.precompile_launches: collections.Counter = collections.Counter()
         disable_tf32()
 
     def graph_pool(self):
@@ -224,6 +298,18 @@ class TrainStepBuilder:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         return self._pool
+
+    def stream(self, role: str, device) -> torch.cuda.Stream:
+        """The builder's side stream for ``role`` (``"capture"`` or
+        ``"warm"``) on ``device``; launches on the warm-up stream count in
+        ``precompile_launches``."""
+        key = (role, device)
+        if key not in self._streams:
+            self._streams[key] = torch.cuda.Stream(device)
+            if role == "warm":
+                _build.STREAM_COUNTS[self._streams[key].cuda_stream] = \
+                    self.precompile_launches
+        return self._streams[key]
 
     def graphs(self) -> dict:
         """The captured graphs by key: (depth, batch, fade) for a step,
@@ -266,6 +352,96 @@ class TrainStepBuilder:
                                 if self.cuda_graphs else raw)
         return self._steps[key]
 
+    def precompile(self, depth: int, batch_size: int, fade: bool, state,
+                   group: int | None = None, scratch=None) -> None:
+        """Make the step of (depth, batch_size, fade), or with ``group`` the
+        ``group_step_fn`` of that many steps, ready before its first call
+        (``pggan_tpu/training/steps.py:275-298``): create it as
+        ``step_fn`` / ``group_step_fn`` would, run one eager step of the
+        key on ``scratch`` (a ``scratch_copy`` of ``state`` made here when
+        None; on the card on the builder's warm-up stream), then, for a
+        graphed step on the card, bind it to ``state`` and capture it
+        (without a process group; under one the capture waits for the
+        first call, see the module docstring). ``state`` is never written.
+        The step's ``warm_s`` and ``capture_s`` hold the seconds. Raises on
+        a failure."""
+        step = (self.step_fn(depth, batch_size, fade) if group is None else
+                self.group_step_fn(depth, batch_size, fade, group))
+        if getattr(step, "warm", False):
+            return  # called already: warm, or captured
+        if scratch is None:
+            scratch = scratch_copy(state)
+        device = scratch.generator.device
+        shape = self.real_batch_shape(depth, batch_size)
+        raw = self._raw_step(depth, batch_size, fade, local=True)
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as on_side:
+            if device.type == "cuda":
+                warm = self.stream("warm", device)
+                warm.wait_stream(torch.cuda.current_stream(device))
+                on_side.enter_context(torch.cuda.stream(warm))
+            # the inputs' types as the graphed step passes them: alpha and
+            # the learning rates as 0-d device tensors (lr 0)
+            raw(scratch, torch.zeros(shape, device=device),
+                *torch.tensor([1.0, 0.0, 0.0], device=device))
+            if device.type == "cuda":
+                warm.synchronize()
+        warm_s = time.perf_counter() - t0
+        if not isinstance(step, _GraphedStep) or device.type != "cuda":
+            return
+        step.warm_s = warm_s
+        lead = () if group is None else (group,)
+        step._bind(state, lead + shape, device)
+        step.warm = step.ahead = True
+        if self.group is None:
+            step._capture((state, step.reals, *step.scalars))
+
+    def precompile_ahead(self, targets, state) -> None:
+        """Queue ``precompile`` of each of ``targets`` ((depth, batch_size,
+        fade, group) tuples, group None for a single step) for the
+        builder's precompile thread, all on one scratch copy of ``state``
+        taken now. Until one is done, its key's first dispatch waits for it
+        (``await_precompile``), which raises its failure; nothing falls
+        back. Targets whose step exists, or is queued, already are
+        skipped."""
+        jobs = []
+        for depth, batch_size, fade, group in targets:
+            key = (depth, batch_size, fade) + (() if group is None
+                                              else (group,))
+            if key not in self._steps and key not in self._precompiles:
+                jobs.append((key, (depth, batch_size, fade, state, group)))
+        if not jobs:
+            return
+        scratch = scratch_copy(state)
+        if self._worker is None:
+            self._worker = concurrent.futures.ThreadPoolExecutor(
+                1, thread_name_prefix="pggan-precompile")
+        for key, args in jobs:
+            self._precompiles[key] = self._worker.submit(
+                self.precompile, *args, scratch=scratch)
+
+    def join_precompiles(self, cancel: bool = False) -> None:
+        """Wait for the queued precompiles, and end the precompile thread
+        (a later ``precompile_ahead`` starts another). ``cancel`` drops
+        those not started yet: their keys take the route of a key never
+        precompiled."""
+        if self._worker is not None:
+            self._worker.shutdown(wait=True, cancel_futures=cancel)
+            self._worker = None
+            self._precompiles = {k: f for k, f in self._precompiles.items()
+                                 if not f.cancelled()}
+
+    def await_precompile(self, key) -> None:
+        """Before the dispatch at ``key``: wait for a precompile of it that
+        has not finished, and raise its failure."""
+        job = self._precompiles.pop(key, None)
+        if job is None:
+            return
+        error = job.exception()
+        if error is not None:
+            raise RuntimeError(f"the precompile of step {key} failed: "
+                               f"{error!r}") from error
+
     @staticmethod
     def _raw_group(step, group: int):
         """The eager group that ``group_step_fn`` runs or captures."""
@@ -279,14 +455,23 @@ class TrainStepBuilder:
                     for name in steps[0]}
         return gstep
 
-    def _raw_step(self, depth: int, batch_size: int, fade: bool):
-        """The eager step that ``step_fn`` runs or captures."""
+    def _raw_step(self, depth: int, batch_size: int, fade: bool,
+                  local: bool = False):
+        """The eager step that ``step_fn`` runs or captures; ``local``: of
+        this rank's batch alone, without a collective (the precompile's
+        warm-up, on a state whose D has no group)."""
         lam, drift, target = (self.iwass_lambda, self.iwass_epsilon,
                               self.iwass_target)
         repeats, beta = self.d_training_repeats, self.g_ema_beta
-        group = self.group
+        group = None if local else self.group
+        pair = self.group is None  # a pair pass has a per-rank statistic
+        lock = self.lock
 
-        def step(state: TrainState, reals, alpha, lr_d, lr_g, noise=None):
+        def step(*args, **kwargs):
+            with lock:  # one raw step at a time (module docstring)
+                return body(*args, **kwargs)
+
+        def body(state: TrainState, reals, alpha, lr_d, lr_g, noise=None):
             G, D = state.G, state.D
             if reals.shape[0] != repeats or reals.shape[1] != batch_size:
                 raise ValueError(f"reals {tuple(reals.shape)}, expected "
@@ -303,7 +488,7 @@ class TrainStepBuilder:
             def d_pair_fn(x2):
                 return D(x2, depth, alpha, fade, stat_groups=2)
 
-            if group is not None:  # the per-half statistic is per rank
+            if not pair:
                 d_pair_fn = None
 
             def g_fn(z):

@@ -245,14 +245,24 @@ class Trainer:
             lrs_d = np.full((group,), self.lr_d, np.float32)
             lrs_g = np.full((group,), self.lr_g, np.float32)
 
-        gstep = self.builder.group_step_fn(self.depth, batch,
-                                           self.alpha < 1.0, group)
+        fade = self.alpha < 1.0
+        self._await_precompile((self.depth, batch, fade, group))
+        gstep = self.builder.group_step_fn(self.depth, batch, fade, group)
         metrics = gstep(self.state, reals, alphas, lrs_d, lrs_g)
         self._dispatched(staged)
         self.iterations += group
         self.call_plugins("iteration", self.iterations,
                           metrics["G_loss"], metrics["D_loss"],
                           metrics["D_real"], metrics["D_fake"])
+
+    def _await_precompile(self, key) -> None:
+        """A dispatch at ``key`` whose precompile (``DepthManager(...,
+        precompile_ahead=True)``) is still running waits for it, rather
+        than start an eager step of its own beside it, and raises its
+        failure."""
+        wait = getattr(self.builder, "await_precompile", None)
+        if wait is not None:
+            wait(key)
 
     # -- the pinned staging pool and the backpressure ------------------------
     def _upload(self, raw: list, lead: tuple):
@@ -349,8 +359,9 @@ class Trainer:
         self.cur_nimg += batch * self._world() * self.D_training_repeats
 
         # The stable phase (alpha == 1) runs the blend-free graph.
-        step = self.builder.step_fn(self.depth, batch,
-                                    fade=self.alpha < 1.0)
+        fade = self.alpha < 1.0
+        self._await_precompile((self.depth, batch, fade))
+        step = self.builder.step_fn(self.depth, batch, fade=fade)
         metrics = step(self.state, reals, np.float32(self.alpha),
                        np.float32(self.lr_d), np.float32(self.lr_g))
         self._dispatched(staged)

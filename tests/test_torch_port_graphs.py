@@ -211,3 +211,120 @@ def test_group_replay_equals_its_single_replays(cuda, deterministic_cudnn,
                        states[1].generator.get_state())
     assert int(states[0].g_opt.count) == 2 + group
     assert int(states[1].g_opt.count) == 2 + group
+
+
+def _state_equal(a, b) -> bool:
+    return (all(torch.equal(x, y) for x, y in zip(a.tensors(), b.tensors()))
+            and torch.equal(a.generator.get_state(), b.generator.get_state()))
+
+
+@pytest.mark.parametrize("fade", [True, False])
+def test_precompiled_key_replays_from_its_first_call(cuda, deterministic_cudnn,
+                                                     fade):
+    """``precompile`` warms the key up on a scratch copy (on the warm-up
+    stream: its launches count in the builder's ``precompile_launches``)
+    and captures it, leaving the
+    state as it was; the key's first call is then a replay, which equals
+    the eager step from the same state to this file's bars and records
+    the eager step's kernel calls."""
+    G, D = _models(cuda)
+    state, builder = init_state(G, D, seed=3), TrainStepBuilder(G, D)
+    G0, D0 = copy.deepcopy(G), copy.deepcopy(D)
+    twin = init_state(G0, D0, seed=99)
+    _copy_state(state, twin)
+    builder.precompile(DEPTH, BATCH, fade, state)
+    step = builder._steps[(DEPTH, BATCH, fade)]
+    assert step.ahead and step.graph is not None and step.replays == 0
+    assert step.warm_s > 0 and step.capture_s > 0
+    assert sum(builder.precompile_launches.values()) > 0
+    assert _state_equal(state, twin)  # the precompile wrote nothing
+    eager = TrainStepBuilder(G0, D0, cuda_graphs=False).step_fn(DEPTH, BATCH,
+                                                                fade)
+    reals = _reals(builder, cuda, 7)
+    alpha, lrs = (0.7 if fade else 1.0), (0.6 * LR, 0.3 * LR)
+    before = [p.detach().clone() for p in [*G.parameters(), *D.parameters()]]
+    launches = dict(_build.LAUNCHES)
+    got = step(state, reals, alpha, *lrs)
+    assert dict(_build.LAUNCHES) == launches  # a replay launches no wrapper
+    assert step.replays == 1 and step.eager_s is None
+    want = eager(twin, reals, alpha, *lrs)
+    eager_calls = {k: n - launches.get(k, 0) for k, n in
+                   _build.LAUNCHES.items() if n != launches.get(k, 0)}
+    assert dict(step.captured) == eager_calls and eager_calls
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-6)
+    moved = 0
+    for p0, p, q in zip(before, [*G.parameters(), *D.parameters()],
+                        [*G0.parameters(), *D0.parameters()]):
+        dp, dq = p.detach() - p0, q.detach() - p0
+        if not dq.any():
+            assert not dp.any()
+            continue
+        moved += 1
+        assert float((dp - dq).norm()) <= UPDATE_TOL * float(dq.norm())
+    assert moved > 0
+    assert int(state.g_opt.count) == int(twin.g_opt.count) == 1
+    assert torch.equal(state.generator.get_state(),
+                       twin.generator.get_state())
+
+
+def test_capture_in_a_thread_beside_replays(cuda, deterministic_cudnn):
+    """A precompile in a background thread captures the stable step while
+    the main thread replays the fade step's graph, queries and waits on
+    events and allocates pinned memory. Against the same replays on a twin
+    without the thread: the same metrics and states bit for bit, generator
+    state included; then the precompiled stable key's first call (a
+    replay) equals the twin's eager first call at that key bit for bit."""
+    import threading
+    pairs = [_models(cuda), _models(cuda)]
+    states = [init_state(G, D, seed=3) for G, D in pairs]
+    builders = [TrainStepBuilder(G, D) for G, D in pairs]
+    reals = [_reals(builders[0], cuda, k) for k in range(4)]
+    fades = [b.step_fn(DEPTH, BATCH, True) for b in builders]
+    for k in range(2):  # eager, then the capture and its first replay
+        for step, state in zip(fades, states):
+            step(state, reals[k], 0.5, LR, LR)
+    stable = builders[1].step_fn(DEPTH, BATCH, False)
+    capturing, during = threading.Event(), [0]
+    capture = stable._capture
+
+    def flagged(args):
+        capturing.set()
+        try:
+            capture(args)
+        finally:
+            capturing.clear()
+    stable._capture = flagged
+    thread = threading.Thread(target=builders[1].precompile,
+                              args=(DEPTH, BATCH, False, states[1]))
+    thread.start()
+    got, n = [], 0
+    while thread.is_alive() or n < 8:
+        m = fades[1](states[1], reals[n % 4], 0.5, LR, LR)
+        during[0] += capturing.is_set()
+        event = torch.cuda.Event()
+        event.record()
+        event.query()
+        torch.empty(1 << 20, dtype=torch.uint8, pin_memory=True)
+        if n % 3 == 0:
+            event.synchronize()
+        got.append(torch.stack([m[name] for name in sorted(m)]).clone())
+        n += 1
+    thread.join()
+    assert stable.graph is not None and stable.ahead
+    assert during[0] > 0, "no replay ran during the capture"
+    want = []
+    for k in range(n):
+        m = fades[0](states[0], reals[k % 4], 0.5, LR, LR)
+        want.append(torch.stack([m[name] for name in sorted(m)]).clone())
+    assert torch.equal(torch.stack(got), torch.stack(want))
+    assert _state_equal(states[0], states[1])
+    launches = dict(_build.LAUNCHES)
+    first = stable(states[1], reals[0], 1.0, LR, LR)
+    assert dict(_build.LAUNCHES) == launches and stable.eager_s is None
+    ref = builders[0].step_fn(DEPTH, BATCH, False)(states[0], reals[0], 1.0,
+                                                   LR, LR)
+    assert builders[0]._steps[(DEPTH, BATCH, False)].eager_s is not None
+    for k in ref:
+        assert torch.equal(first[k], ref[k]), k
+    assert _state_equal(states[0], states[1])

@@ -223,10 +223,6 @@ def test_loss_monitor_means_with_reused_output_tensors():
     assert trainer.stats["D_loss"]["epoch_mean"] == np.mean(values)
 
 
-def test_precompile_ahead_raises():
-    with pytest.raises(NotImplementedError, match="CUDA graph"):
-        plugins.DepthManager(precompile_ahead=True)
-
 
 # -- the train CLI ---------------------------------------------------------------
 

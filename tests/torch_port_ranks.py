@@ -90,7 +90,42 @@ def _cli(inp, group):
     return out
 
 
-CASES = {"stddev": _stddev, "step": _step, "cli": _cli}
+def _precompile(inp, group):
+    """Train CLI runs on every rank, with and without
+    ``--DepthManager.precompile_ahead``: the state, the clock, the
+    collectives called (from the training thread, and from any other),
+    and the keys made ready ahead."""
+    import threading
+    from pggan_tpu_torch.cli import train as cli
+    out = {}
+    calls = []
+    real = {name: getattr(dist, name) for name in ("all_reduce", "all_gather")}
+
+    def spy(name):
+        def call(*args, **kwargs):
+            calls.append(threading.current_thread() is threading.main_thread())
+            return real[name](*args, **kwargs)
+        return call
+    for name in real:
+        setattr(dist, name, spy(name))
+    try:
+        for name, argv in inp["runs"]:
+            calls.clear()
+            trainer = cli.cli_main(argv)  # its precompile thread joined
+            out[name] = {
+                "state": checkpoint.training_state_dict(trainer.state),
+                "iterations": trainer.iterations,
+                "collectives": calls.count(True),
+                "collectives_off_the_training_thread": calls.count(False),
+                "precompiled": set(trainer.builder._steps)}
+    finally:
+        for name, f in real.items():
+            setattr(dist, name, f)
+    return out
+
+
+CASES = {"stddev": _stddev, "step": _step, "cli": _cli,
+         "precompile": _precompile}
 
 
 def main(case, workdir, rank, world):
