@@ -137,6 +137,14 @@ STAGES = [((BATCH, 128, 64, 128), (64, 32, 32)),
           ((BATCH, 256, 32, 256), (32, 16, 16)),
           ((BATCH, 512, 16, 512), (16, 8, 8))]
 
+# every weight-gradient shape (res, x's C, the cotangent's K) of a depth-8
+# train step's NHCW stages at batch TRAIN_BATCH: G's tail at 256-1024 px,
+# D's head at 1024-128 px (phase 3 times #4 at each against
+# convolution_backward)
+STEP_DW = [(256, 64, 32), (256, 32, 32), (512, 32, 16), (512, 16, 16),
+           (1024, 16, 8), (1024, 8, 8), (1024, 8, 16), (512, 16, 32),
+           (256, 32, 64), (128, 64, 64), (128, 64, 128)]
+
 KERNELS = {  # name -> (source, TPU kernel it replaces)
     "upsample2x": ("pggan_tpu_torch/csrc/upsample2x.cu",
                    "pggan_tpu/ops/pallas_resample.py:134"),
@@ -310,6 +318,8 @@ class KernelChecks:
         # phase 6's conv and weight-gradient calls, one row a shape: the
         # kernel against the library call, bracketed and back to back
         self.shape_rows = []
+        # phase 3's weight gradient at each STEP_DW shape, the same
+        self.dw_rows = []
         self.last = {}
 
     def rand(self, *shape, scale=1.0):
@@ -485,6 +495,7 @@ class KernelChecks:
                     f"bound {t['bound_ms']:.3f} ms: "
                     f"{t['bound_ms'] / t['burst_ms']:.1%} of its bound back "
                     f"to back")
+            self.dw_step_shapes()
             # ragged: H and W not multiples of any tile, to hold the masks
             x = self.rand(3, 37, 5, 45)
             self.check("upsample2x", "ragged x (3, 37, 5, 45)",
@@ -506,6 +517,51 @@ class KernelChecks:
                              "ragged 24->16->8 (2, 37, ., 45)", timed=False)
             self.train_kernels_ragged()
         torch.cuda.empty_cache()
+
+    def dw_step_shapes(self):
+        """The weight gradient at each STEP_DW shape: against float64
+        (DW_TOL) and bit for bit across two calls, then timed back to back
+        (a burst of 20) and bracketed beside convolution_backward; at K >=
+        64 also with k tiles of 32 beside the plan's 64, held and timed the
+        same way."""
+        from pggan_tpu_torch.ops import conv3x3 as C
+        torch = self.torch
+        for res, c, k in STEP_DW:
+            x = self.rand(TRAIN_BATCH, res, c, res)
+            ct = self.rand(TRAIN_BATCH, res, k, res)
+            sig = ((TRAIN_BATCH, res, c, res), (TRAIN_BATCH, res, k, res))
+            label = f"step x {sig[0]} K {k}"
+            kt = C.dw_plan(*sig[0], k)[0]
+            tiers = (kt, 32) if k >= 64 else (kt,)
+            row = {"sig": [list(a) for a in sig], "kt": kt}
+            for tier in tiers:
+                def kernel(t=tier):
+                    return C._dw_fwd(x, ct, kt=t)
+                if not torch.equal(kernel(), kernel()):
+                    raise AssertionError(f"conv3x3_dw {label} KT {tier}: "
+                                         f"two calls differ")
+                self.check("conv3x3_dw", f"{label} KT {tier}", kernel,
+                           lambda: C.conv3x3_dw_plain(x, ct), tol=DW_TOL,
+                           timed=False,
+                           reference=self.f64(C.conv3x3_dw_plain, x, ct))
+                row[f"kt{tier}"] = {"ms": time_ms(torch, kernel),
+                                    "burst_ms": burst_ms(torch, kernel, 20)}
+            lib = library_call(torch, "conv3x3_dw", (x, ct))
+            row["library_ms"] = time_ms(torch, lib)
+            row["library_burst_ms"] = burst_ms(torch, lib, 20)
+            row["bound_ms"] = bounds(*work("conv3x3_dw", sig))[0]
+            mine = row[f"kt{kt}"]
+            ratio = mine["burst_ms"] / row["library_burst_ms"]
+            other = (f"; KT 32 {row['kt32']['burst_ms']:.4f} back to back"
+                     if k >= 64 else "")
+            log(f"    conv3x3_dw {label} (KT {kt}): kernel "
+                f"{mine['burst_ms']:.4f} ms back to back, {mine['ms']:.4f} "
+                f"bracketed{other}; convolution_backward "
+                f"{row['library_burst_ms']:.4f} / {row['library_ms']:.4f}: "
+                f"kernel / library {ratio:.2f}x back to back; bound "
+                f"{row['bound_ms']:.4f} ms")
+            self.dw_rows.append(row)
+            del x, ct
 
     def train_kernels_ragged(self):
         """The training kernels at shapes no tile divides, and the conv
@@ -2907,18 +2963,26 @@ def replayed_noise(torch, draws, device, group=None):
 
 def gloo_start(torch, path):
     """Phase B's common start: SEED's paper models after GLOO_WARM eager
-    depth-6 steps on their own draws, saved as a training state, so that
-    the compared step's Adam has a history (at the first step an update is
-    lr * sign(g), and a gradient at the noise level flips it)."""
+    depth-6 steps on their own draws (cuDNN deterministic), saved as a
+    training state, so that the compared step's Adam has a history (at the
+    first step an update is lr * sign(g), and a gradient at the noise level
+    flips it)."""
     from pggan_tpu_torch import checkpoint
     from pggan_tpu_torch.training import TrainStepBuilder, init_state
     G, D = paper_models(torch, "cuda")
     state = init_state(G, D, seed=SEED + 40)
     builder = TrainStepBuilder(G, D, cuda_graphs=False)
     step = builder.step_fn(GLOO_DEPTH, TRAIN_BATCH, True)
-    for i in range(GLOO_WARM):
-        u8 = uint8_reals(torch, builder, GLOO_DEPTH, SEED + 50 + i)
-        step(state, builder.prep_fn()(u8.cuda(), 0.5), 0.5, LR, LR)
+    # cuDNN's deterministic algorithms, as gloo_step runs the compared
+    # step: its default ones may sum with atomics, and the start would
+    # then differ from run to run
+    torch.backends.cudnn.deterministic = True
+    try:
+        for i in range(GLOO_WARM):
+            u8 = uint8_reals(torch, builder, GLOO_DEPTH, SEED + 50 + i)
+            step(state, builder.prep_fn()(u8.cuda(), 0.5), 0.5, LR, LR)
+    finally:
+        torch.backends.cudnn.deterministic = False
     checkpoint.save_training_state(path, state, 0, GLOO_WARM)
     del G, D, state, builder, step
     torch.cuda.empty_cache()
@@ -4095,7 +4159,7 @@ def main() -> int:
         log(f"  {src}: " + ", ".join(f"{k} {r} regs" + (f" ({s} B spilled)"
                                                      if s else "")
                                      for k, (r, s) in entries.items()))
-    for src in ("conv3x3.cu", "conv3x3_dw.cu"):
+    for src in ("conv3x3.cu", "conv3x3_dw.cu", "conv_chain.cu"):
         text = (_build.build_dir() / (src + ".log")).read_text()
         warnings = sorted({ln.strip() for ln in text.splitlines()
                            if "warning" in ln.lower()
@@ -4303,6 +4367,7 @@ def main() -> int:
     # the runs' graph replays ran
     kernels = []
     print(json.dumps({"conv_shapes": checks.shape_rows,
+                      "dw_step_shapes": checks.dw_rows,
                       "card": card_line}))
     for name, (src, rep) in KERNELS.items():
         per_step = name not in SERVE_ONLY

@@ -35,7 +35,7 @@
 //   and no workspace. (Plain loads or 4-byte cp.async copies in place of
 //   the weights' TMA box left the producer behind at KT = 64.)
 // - Arithmetic: wgmma.m64nKTk8 in TF32 with the three-product split of
-//   tf32_mma.cuh (f32 accuracy), split in integer arithmetic (hopper.cuh's
+//   hopper.cuh (f32 accuracy), split in integer arithmetic (hopper.cuh's
 //   tf32_split_fast: cvt.rna.tf32.f32 issues at a fraction of the rate).
 //   TF32 wgmma reads shared memory K-major only and the halo is
 //   pixel-major, so A (pixels x channels) comes from registers, split as
@@ -308,32 +308,10 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap xmap,
     for (int i = 0; i < RW; ++i) {
       const int gr = row0 + wg * RW + i;
       float rr[2] = {1.f, 1.f};
-      if (EPI != pggan::kEpiNone) {
-        float ss[2] = {0.f, 0.f};
-#pragma unroll
-        for (int j = 0; j < KT / 8; ++j)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int k = 8 * j + 2 * t + e;
-              float z = acc[i][4 * j + 2 * h + e];
-              if (k < Kg) z += __ldg(b + k0 + k);
-              z = z >= 0.f ? z : z * slope;
-              acc[i][4 * j + 2 * h + e] = z;
-              ss[h] = fmaf(z, z, ss[h]);
-            }
-        if (EPI == pggan::kEpiActPn) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            ss[h] += __shfl_xor_sync(0xffffffffu, ss[h], 1);
-            ss[h] += __shfl_xor_sync(0xffffffffu, ss[h], 2);
-            rr[h] = rsqrtf(ss[h] / (float)K + eps);
-          }
-#pragma unroll
-          for (int e = 0; e < NR; ++e) acc[i][e] *= rr[(e >> 1) & 1];
-        }
-      }
+      // with pixelnorm K <= KT: one group, Kg = K
+      if (EPI != pggan::kEpiNone)
+        pggan::bias_act_pn(acc[i], b + k0, Kg, EPI == pggan::kEpiActPn,
+                           slope, eps, t, rr);
       if (gr >= H) continue;
       float* yrow = y + (((long long)n * H + gr) * K + k0) * W;
 #pragma unroll

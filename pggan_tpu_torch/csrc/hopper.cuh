@@ -1,8 +1,22 @@
-// Hopper building blocks of conv3x3.cu and conv3x3_dw.cu: TMA tile loads
-// completing on mbarriers, warpgroup MMAs (wgmma) in TF32 with A from
-// registers and B from shared memory, and the host-side encoding of a TMA
-// tensor map. Everything here needs sm_90a (wgmma); the split of each f32
-// operand into TF32 halves stays in tf32_mma.cuh.
+// Hopper building blocks of conv3x3.cu, conv3x3_dw.cu and conv_chain.cu:
+// TMA tile loads completing on mbarriers, warpgroup MMAs (wgmma) in TF32
+// with A from registers and B from shared memory, the warp-level
+// mma.sync.m16n8k8 for tiles too small for wgmma's 64 rows, the split of
+// each f32 operand into TF32 halves, and the host-side encoding of a TMA
+// tensor map. Everything here needs sm_90a (wgmma).
+//
+// The split. A TF32 operand keeps 10 of f32's 23 mantissa bits, so one TF32
+// product is off by up to ~1e-3 relative. Writing each f32 operand as
+// a = hi + lo, with hi = tf32(a) and lo = tf32(a - hi) (both rounded to
+// nearest, ties away), gives
+//   a * b = hi_a hi_b + hi_a lo_b + lo_a hi_b + lo_a lo_b,
+// and the last term is below 2^-22 of the product, so three tensor-core
+// products with f32 accumulators keep about 21-22 mantissa bits per
+// product: the f32 FMA's accuracy, at 3 / 495 TFLOP/s (H100 TF32 dense)
+// instead of f32's 67. The TPU kernels did the same for f32 on the MXU, in
+// several bf16 passes. The tensor cores truncate when they add into an
+// accumulator, so the kernels sum short chains of products from zero and
+// add each chain to their f32 sums with a rounded add.
 //
 // wgmma.m64nNk8 (TF32): four warps multiply a 64 x 8 A (registers) by an
 // 8 x N B (shared memory) into a 64 x N f32 accumulator. Warp w of the
@@ -124,14 +138,44 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
 // -- the TF32 split ----------------------------------------------------------
 
 // a = hi + lo, both TF32 (an f32 whose low 13 bits are 0), each rounded to
-// nearest with ties away from zero: the values of tf32_mma.cuh's
-// tf32_split for every finite a, in integer and f32 adds that issue at full
-// rate, where cvt.rna.tf32.f32 issues at a fraction of it and bounds a
-// kernel that splits every operand it loads. a - hi is exact in f32.
+// nearest with ties away from zero: the values of cvt.rna.tf32.f32 for
+// every finite a, in integer and f32 adds that issue at full rate, where
+// cvt.rna.tf32.f32 issues at a fraction of it and bounds a kernel that
+// splits every operand it loads. a - hi is exact in f32.
 __device__ __forceinline__ void tf32_split_fast(float a, uint32_t& hi,
                                                 uint32_t& lo) {
   hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
   lo = (__float_as_uint(a - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+
+// -- mma.sync ---------------------------------------------------------------
+
+// d += a b for one warp's m16n8k8 TF32 tile, fragments as wgmma's A and D
+// above (one warp's 16 rows) and b0 (row t, col g), b1 (row t + 4, col g)
+__device__ __forceinline__ void mma_m16n8k8(float (&d)[4],
+                                            const uint32_t (&a)[4],
+                                            uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in three TF32 products of split operands, cross terms first,
+// summed from zero in the tensor cores and added to d with one rounded f32
+// add
+__device__ __forceinline__ void mma_m16n8k8_3x(float (&d)[4],
+                                               const uint32_t (&ah)[4],
+                                               const uint32_t (&al)[4],
+                                               const uint32_t (&bh)[2],
+                                               const uint32_t (&bl)[2]) {
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_m16n8k8(s, al, bh[0], bh[1]);
+  mma_m16n8k8(s, ah, bl[0], bl[1]);
+  mma_m16n8k8(s, ah, bh[0], bh[1]);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += s[e];
 }
 
 // -- wgmma ------------------------------------------------------------------

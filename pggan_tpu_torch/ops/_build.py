@@ -49,7 +49,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("conv3x3.cu", "conv3x3_dw.cu", "conv_chain.cu", "upsample2x.cu",
            "avgpool2x.cu")
-HEADERS = ("epilogue.cuh", "hopper.cuh", "split_weights.cuh", "tf32_mma.cuh")
+HEADERS = ("epilogue.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -67,9 +67,9 @@ _SIGNATURES = {
     # col_tiles, stream
     "pggan_conv3x3_dw": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _P),
-    # x, w1, b1, w2, b2, y, ws, N, H, C, W, K1, K2, K1T, K2T, pn, slope,
-    # eps, stream
-    "pggan_conv3x3_chain": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    # x, w1, b1, w2, b2, y, N, H, C, W, Wy, K1, K2, KT, L, pn, slope, eps,
+    # stream
+    "pggan_conv3x3_chain": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _I, _I, _F, _F, _P),
 }
 

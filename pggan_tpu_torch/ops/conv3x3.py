@@ -33,18 +33,20 @@ gradient either: the gradient penalty's inner ``autograd.grad`` asks only
 for the input gradient, and the weights' second-order terms come from the
 graph of that input gradient, not from these skipped terms.
 
-Both kernels run on Hopper's warpgroup MMAs (``wgmma``) in TF32, with each
-f32 operand split into two TF32 values, a = hi + lo, and each product taken
-as hi hi + hi lo + lo hi (``csrc/tf32_mma.cuh``): f32 accuracy (one TF32
-product does not), at a third of the card's 495 TFLOP/s TF32 rate where
-f32 FMAs give 67. Their tiles arrive by TMA on rings of ``mbarrier``
-stages filled by a producer warpgroup (``csrc/hopper.cuh``), whose zero fill
-outside the tensor is the convolution's padding. The conv is an implicit
-GEMM of output pixels by output channels on a persistent grid, bound by
-operations at 128-256 px and by bytes at 512-1024 px, the weights split
-inside the kernel; more than 64 output channels (no pixelnorm) run as
-groups of 64 in one launch (output channels are independent, so this is
-exact), and with pixelnorm a pixel's K outputs stay in one quad of lanes.
+Both kernels run on Hopper's tensor cores in TF32 (warpgroup MMAs,
+``wgmma``; the weight gradient's tiles for K <= 16 on the warp-level
+``mma.sync``), with each f32 operand split into two TF32 values, a = hi +
+lo, and each product taken as hi hi + hi lo + lo hi (``csrc/hopper.cuh``):
+f32 accuracy (one TF32 product does not), at a third of the card's 495
+TFLOP/s TF32 rate where f32 FMAs give 67. Their tiles arrive by TMA on
+rings of ``mbarrier`` stages filled by a producer warpgroup
+(``csrc/hopper.cuh``), whose zero fill outside the tensor is the
+convolution's padding. The conv is an implicit GEMM of output pixels by
+output channels on a persistent grid, bound by operations at 128-256 px
+and by bytes at 512-1024 px, the weights split inside the kernel; more
+than 64 output channels (no pixelnorm) run as groups of 64 in one launch
+(output channels are independent, so this is exact), and with pixelnorm a
+pixel's K outputs stay in one quad of lanes.
 The weight gradient is the transposed GEMM (taps x input channels by
 output channels, reduced over pixels), split over pixel slices in two
 deterministic passes. TMA wants 16-byte strides, so a W (or the conv's K)
@@ -57,6 +59,7 @@ are sliced off; no step shape needs it. Design notes in the sources.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 
 import torch
@@ -66,12 +69,13 @@ from pggan_tpu_torch.ops import _build
 
 K_TIERS = (8, 16, 32, 64)
 _EPI_NONE, _EPI_ACT, _EPI_ACT_PN = 0, 1, 2
-# work items the dw kernel's first pass aims for: 8 per SM of the H100
-# (csrc/conv3x3_dw.cu walks them on a persistent grid, one block an SM);
-# short runs of rows keep each partial's f32 sum short
-_DW_TARGET_BLOCKS = 8 * 132
-_DW_COLS = 128  # columns of a dw tile (csrc/conv3x3_dw.cu)
-_DW_MIN_ROWS = 8  # image rows a dw block walks, at least
+# the H100's SMs: the dw and chain kernels walk their work items on a
+# persistent grid, one block an SM
+_SMS = 132
+# image rows a dw work item walks, at least and at most: each warpgroup's
+# f32 sums run over an item's rows, and whole-image runs let a step on a
+# half batch and one on the whole part past chip_smoke.py's phase B bar
+_DW_MIN_ROWS, _DW_MAX_ROWS = 8, 24
 
 
 def k_tier(k: int) -> int:
@@ -217,25 +221,41 @@ def _act_pn_fwd(x, w, b, slope, eps):
     return _launch("conv3x3_act_pn", _EPI_ACT_PN, x, w, b, slope, eps)
 
 
-def dw_plan(n, h, c, w, k):
+def dw_cols(kt: int) -> int:
+    """Columns of a dw work item (``csrc/conv3x3_dw.cu`` ``DwPlan::TW``):
+    64 at KT = 64 (its hi / lo B operands of a row fill shared memory at
+    128), else 128."""
+    return 64 if kt == 64 else 128
+
+
+@functools.lru_cache(maxsize=None)
+def dw_plan(n, h, c, w, k, kt=None):
     """The dw kernel's k tile KT, channel chunk CC, image rows per work
-    item, row runs per image and 128-column tiles (``csrc/conv3x3_dw.cu``
-    ``DwPlan``): KT is K's tier up to 32 (K > 32 in tiles of 32), CC 8 for
-    C <= 8 and 16 otherwise; enough items (slice x channel chunk x k tile)
-    for eight an SM, each over a run of at least ``_DW_MIN_ROWS`` rows
-    (where the image has them), so that a run's two halo rows stay a small
+    item, row runs per image and column tiles (``csrc/conv3x3_dw.cu``
+    ``DwPlan``). KT is K's tier: m16 ``mma.sync`` tiles at 8 and 16,
+    ``wgmma`` at 32 and 64, K > 64 in k tiles of 64 (x loaded once for 64
+    channels), which an H100 ran as fast as k tiles of 32 or up to 7%
+    faster at the K >= 64 shapes of the step (``chip_smoke.py`` phase 3
+    times both; ``kt`` overrides). CC is 8 for C <= 8 at KT <= 16 (9 x 8 rows fill
+    five m16 tiles), else 16. The run length (``_DW_MIN_ROWS`` to
+    ``_DW_MAX_ROWS`` rows where the image has them) makes the least of the
+    rounds of items over the card's SMs times an item's stages (its rows
+    and two halo rows): the SMs stay evenly busy and the halo rows a small
     share."""
-    kt = k_tier(min(k, 32))
-    cc = 8 if c <= 8 else 16
-    col_tiles = -(-w // _DW_COLS)
+    kt = k_tier(min(k, 64)) if kt is None else kt
+    cc = 8 if c <= 8 and kt <= 16 else 16
+    col_tiles = -(-w // dw_cols(kt))
     tiles = n * -(-c // cc) * -(-k // kt) * col_tiles
-    chunks = min(-(-h // _DW_MIN_ROWS),
-                 max(1, -(-_DW_TARGET_BLOCKS // tiles)))
+
+    def cost(rows):
+        return -(-tiles * -(-h // rows) // _SMS) * (rows + 2)
+    rows = range(min(h, _DW_MIN_ROWS), min(h, _DW_MAX_ROWS) + 1)
+    chunks = -(-h // min(rows, key=cost))
     rows_per_block = -(-h // chunks)
     return kt, cc, rows_per_block, -(-h // rows_per_block), col_tiles
 
 
-def _dw_fwd(x, ct):
+def _dw_fwd(x, ct, kt=None):
     if x.ndim != 4 or ct.ndim != 4 or (
             (ct.shape[0], ct.shape[1], ct.shape[3])
             != (x.shape[0], x.shape[1], x.shape[3])):
@@ -254,7 +274,8 @@ def _dw_fwd(x, ct):
     # a ragged W padded with zero columns, which add nothing
     x, ct = tma_operand(x), tma_operand(ct)
     wd = x.shape[3]
-    kt, cc, rows_per_block, row_chunks, col_tiles = dw_plan(n, h, c, wd, k)
+    kt, cc, rows_per_block, row_chunks, col_tiles = dw_plan(n, h, c, wd, k,
+                                                            kt=kt)
     # a partial for each of the kernel's two warpgroups a pixel slice
     ws = torch.empty((2 * n * row_chunks * col_tiles, 9, c, k),
                      dtype=x.dtype, device=x.device)

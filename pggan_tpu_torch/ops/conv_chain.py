@@ -9,32 +9,56 @@ It has no backward, ever: a tensor that requires grad raises, on any
 device, as the JAX chain fails under AD.
 
 The kernel replaces ``pggan_tpu/ops/pallas_chain.py:conv3x3_chain``. Both
-convs run on the tensor cores in the conv kernel's arithmetic (TF32
-``mma.sync`` with the three-product split, f32 accuracy); fusing saves the
-intermediate's write and read. A block computes a ``TH`` x 32 output tile:
-stage 1 computes the (TH + 2) x 34 intermediate tile (its halo included)
-into shared memory, streaming input channels in chunks of 8, and writes
-positions outside the image as 0 (the second conv's padding, not
-``ep(conv(0))``); stage 2 computes the output tile from it. The tile plan
-is the source's ``Plan`` (design notes there).
+convs run on Hopper's warpgroup MMAs (``wgmma``) in the conv kernel's
+arithmetic (TF32 with the three-product split, f32 accuracy), fed by TMA;
+fusing saves the intermediate's write and read. A block walks a strip of
+64 output columns down a run of rows (``chain_rows``): stage 1 computes
+the strip's intermediate at 66 columns (its halo included), 64 positions
+of the flattened (row, column) walk to an M-tile, and keeps the rows the
+next output rows need in shared memory, so each intermediate row is
+computed once a run; positions outside the image are written as 0 (the
+second conv's padding, not ``ep(conv(0))``); stage 2 computes each output
+row once its three intermediate rows are complete. The weights are split
+inside the kernel: no workspace. Design notes in the source.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from pggan_tpu_torch.ops import _build
-from pggan_tpu_torch.ops.conv3x3 import (K_TIERS, _act_plain, conv3x3_plain,
-                                         k_tier)
+from pggan_tpu_torch.ops.conv3x3 import (K_TIERS, _SMS, _act_plain,
+                                         conv3x3_plain, k_tier, tma_operand)
 
-_CC = 8  # the kernel's input channels a stage (csrc/conv_chain.cu kCC)
+_STRIP = 64  # output columns of a strip (csrc/conv_chain.cu kTW)
+_ROW = _STRIP + 2  # intermediate positions a row (kIW)
 
 
-def _workspace_floats(c: int, k1: int, k2: int) -> int:
-    """Scratch for the split weights: (9, C8, K1T + 4) and (9, K18, K2T +
-    4) (hi, lo) pairs, C8 and K18 = C and K1 rounded up to 8."""
-    c8, k18 = -(-c // _CC) * _CC, -(-k1 // _CC) * _CC
-    return 2 * 9 * (c8 * (k_tier(k1) + 4) + k18 * (k_tier(k2) + 4))
+def band_positions(kt: int) -> int:
+    """Intermediate positions a band computes (``Plan<KT>::BP``): 64 to an
+    M-tile, MW = 1, 2, 4, 5 M-tiles a warpgroup at KT = 64, 32, 16, 8."""
+    return 2 * {8: 5, 16: 4, 32: 2, 64: 1}[kt] * _STRIP
+
+
+def bands(rows: int, kt: int) -> int:
+    """Bands of a run of ``rows`` output rows: its (rows + 2) x 66
+    intermediate positions, a band's at a time."""
+    return -(-(rows + 2) * _ROW // band_positions(kt))
+
+
+@functools.lru_cache(maxsize=None)
+def chain_rows(n: int, h: int, w: int, kt: int) -> int:
+    """Image rows of a work item (a run down one strip): the run length
+    whose rounds of items over the card's SMs times a run's bands is least
+    (the longest such), so that the SMs stay busy and a run's two halo rows
+    stay a small share."""
+    strips = n * -(-w // _STRIP)
+
+    def cost(rows):
+        return -(-strips * -(-h // rows) // _SMS) * bands(rows, kt)
+    return min(range(h, 0, -1), key=cost)
 
 
 def chain_supported(x_nhcw_shape, w1_shape, w2_shape) -> bool:
@@ -83,16 +107,18 @@ def conv3x3_chain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         return conv3x3_chain_plain(x, w1, b1, w2, b2, slope=slope,
                                    pn_eps=pn_eps)
     n, h, c, wd = x.shape
-    y = torch.empty((n, h, k2, wd), dtype=x.dtype, device=x.device)
+    kt = k_tier(max(k1, k2))
+    # TMA's 16-byte strides: a ragged W, K1 or K2 padded with zeros (the
+    # kernel masks the image at W; the padded columns are sliced off)
+    x, w1, w2 = tma_operand(x), tma_operand(w1), tma_operand(w2)
+    wp = x.shape[3]
+    y = torch.empty((n, h, k2, wp), dtype=x.dtype, device=x.device)
     if y.numel():
-        ws = torch.empty(_workspace_floats(c, k1, k2), dtype=x.dtype,
-                         device=x.device)
         name = "conv3x3_chain" if pn_eps is None else "conv3x3_chain_pn"
         _build.launch(name, "pggan_conv3x3_chain", x.device,
                       x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                      w2.data_ptr(), b2.data_ptr(), y.data_ptr(),
-                      ws.data_ptr(), n, h, c, wd, k1, k2, k_tier(k1),
-                      k_tier(k2),
+                      w2.data_ptr(), b2.data_ptr(), y.data_ptr(), n, h, c,
+                      wd, wp, k1, k2, kt, chain_rows(n, h, wd, kt),
                       int(pn_eps is not None), float(slope),
                       float(pn_eps or 0.0))
-    return y
+    return y[..., :wd].contiguous() if wp != wd else y

@@ -30,7 +30,7 @@ KERNEL_GROUPS = (
     # NCCL's kernels; at one rank an averaging all-reduce is its
     # oneRankReduce kernel, and an in-place sum runs nothing
     ("NCCL collectives", ("nccl", "oneRankReduce")),
-    ("chain kernel", ("chain_kernel", "chain_split")),
+    ("chain kernel", ("chain_kernel",)),
     ("conv3x3 kernel", ("conv3x3_wgmma",)),
     ("conv3x3_dw kernel", ("conv3x3_dw",)),
     ("upsample kernel", ("upsample2x",)),

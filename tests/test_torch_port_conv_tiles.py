@@ -64,20 +64,21 @@ def conv_plan(kt):
 
 
 def dw_plan_mirror(kt, cc):
-    """``DwPlan<KT, CC>``: column tile, staged x and cotangent rows,
-    k-steps a row, m-tiles, chains an m-tile, shared memory."""
-    tw = 128
-    mt = -(-9 * cc // 64)
+    """``DwPlan<KT, CC>``: m16 ``mma.sync`` tiles at KT <= 16, m64
+    ``wgmma`` above; column tile, staged x and cotangent rows, k-steps a
+    row, m-tiles, shared memory (stages, and beside them the warps' sums
+    (m16) or the warpgroups' hi / lo B operands (m64))."""
+    small = kt <= 16
+    tw = 64 if kt == 64 else 128
+    mt = -(-9 * cc // (16 if small else 64))
     xpx, xpc = tw + 36, tw + 4
     stage = _round_up((cc * xpx + kt * xpc) * 4, 128)
-    b_floats = tw // 8 * 8 * kt
-    # as many stages as fit beside the four B buffers, at most 12
-    stages = min(12, (SMEM_LIMIT - 128 - 4 * b_floats * 4 - 2 * 12 * 8)
-                 // stage)
-    smem = stages * stage + 4 * b_floats * 4 + 2 * stages * 8 + 128
-    return {"tw": tw, "xpx": xpx, "xpc": xpc, "ks": tw // 8, "mt": mt,
-            "il": 2 if kt == 32 else 4, "smem": smem,
-            "stages": stages}
+    side = 2 * 4 * 32 * mt * kt // 2 if small else 4 * (tw // 8 * 8 * kt)
+    # as many stages as fit beside them, at most 12
+    stages = min(12, (SMEM_LIMIT - 128 - side * 4 - 2 * 12 * 8) // stage)
+    smem = stages * stage + side * 4 + 2 * stages * 8 + 128
+    return {"small": small, "tw": tw, "xpx": xpx, "xpc": xpc,
+            "ks": tw // 8, "mt": mt, "smem": smem, "stages": stages}
 
 
 def tma_box(t, start, size):
@@ -179,16 +180,20 @@ def emulate_conv(x, w, b, *, epi, slope=0.2, eps=1e-8, grid=SMS,
     return y[..., :w_out], r[..., :w_out], walked
 
 
-def emulate_dw(x, ct, *, product=_f64_product, add=_f64_add):
+def emulate_dw(x, ct, *, product=_f64_product, add=_f64_add, kt=None):
     """The weight-gradient kernel's walk and second pass; returns dw (3, 3,
-    C, K) and the workspace of partials (P, 9, C, K)."""
+    C, K) and the workspace of partials (P, 9, C, K). ``kt`` overrides
+    ``dw_plan``'s k tile."""
     x, ct = C.tma_operand(x), C.tma_operand(ct)  # as the wrapper passes them
     n, h, c, wd = x.shape
     k = ct.shape[2]
-    kt, cc, rpb, row_chunks, col_tiles = C.dw_plan(n, h, c, wd, k)
+    kt, cc, rpb, row_chunks, col_tiles = C.dw_plan(n, h, c, wd, k, kt=kt)
     p = dw_plan_mirror(kt, cc)
     tw = p["tw"]
-    assert tw == C._DW_COLS
+    assert tw == C.dw_cols(kt)
+    # sums a warpgroup: the four warps' (a quarter of each row's k-steps
+    # each) at m16 tiles, added in warp order at the end; one at m64
+    warps = 4 if p["small"] else 1
     dtype = torch.float64 if product is _f64_product else torch.float32
     slices = n * row_chunks * col_tiles
     # a partial for each warpgroup of each pixel slice: 2 s + wg
@@ -203,7 +208,8 @@ def emulate_dw(x, ct, *, product=_f64_product, add=_f64_add):
                 # stage q: x row i0 - 1 + q; cotangent row i0 + q - 2
                 xrow = [tma_box(x[nn], (i0 - 1 + q, c0, j0 - 4),
                                 (1, cc, p["xpx"]))[0] for q in range(steps)]
-                sums = [torch.zeros(9 * cc, kt, dtype=dtype) for _ in (0, 1)]
+                sums = [[torch.zeros(9 * cc, kt, dtype=dtype)
+                         for _ in range(warps)] for _ in (0, 1)]
                 for q in range(2, steps):
                     cb = tma_box(ct[nn], (i0 + q - 2, k0, j0),
                                  (1, kt, p["xpc"]))[0]
@@ -212,14 +218,19 @@ def emulate_dw(x, ct, *, product=_f64_product, add=_f64_add):
                     a = a.reshape(9 * cc, tw)  # (tap, c) rows, tap-major
                     # warpgroup (q - 2) % 2 takes the row; each 8-pixel
                     # k-step one group of products, added in k-step order
+                    # to the sums of the warp that takes it
                     wg = (q - 2) % 2
                     for ks in range(tw // 8):
                         pix = slice(8 * ks, 8 * ks + 8)
-                        sums[wg] = add(sums[wg], product(a[:, pix],
-                                                         cb[:, pix].T))
+                        w = ks * warps // (tw // 8)
+                        sums[wg][w] = add(sums[wg][w],
+                                          product(a[:, pix], cb[:, pix].T))
                 cg, kg = min(cc, c - c0), min(kt, k - k0)
                 for wg in (0, 1):
-                    part = sums[wg].reshape(9, cc, kt)
+                    total = sums[wg][0]
+                    for w in range(1, warps):
+                        total = add(total, sums[wg][w])
+                    part = total.reshape(9, cc, kt)
                     ws[2 * s + wg, :, c0:c0 + cg, k0:k0 + kg] = part[
                         :, :cg, :kg]
     assert not ws.isnan().any()  # every partial written once
@@ -296,36 +307,41 @@ def test_conv_tf32_split_against_float64(shape, products, within):
     assert ok == within, float((y - want).abs().max())
 
 
-# (N, H, C, W, K): KT 32 / CC 16 with W ragged against 128 columns and H
-# against the row runs; K > 32 in three k tiles with C not a multiple of
-# 8; an image smaller than one tile; KT 8 / CC 8; W not a multiple of 4
-# (padded), KT 16 / CC 16
-DW_SHAPES = [(2, 20, 16, 140, 24), (1, 9, 12, 68, 72), (1, 3, 8, 4, 16),
-             (1, 6, 8, 36, 8), (1, 5, 12, 45, 11)]
+# (N, H, C, W, K, KT): KT 32 / CC 16 with W ragged against 128 columns and
+# H against the row runs; K > 64 in two k tiles of 64 (64-column items)
+# with C not a multiple of 8, and the same in three k tiles of 32; an
+# image smaller than one tile (m16 tiles, KT 16 / CC 8); KT 8 / CC 8; W
+# not a multiple of 4 (padded), KT 16 / CC 16; KT 8 / CC 16; KT 32 at
+# C <= 8 (CC 16)
+DW_SHAPES = [(2, 20, 16, 140, 24, None), (1, 9, 12, 68, 72, None),
+             (1, 9, 12, 68, 72, 32), (1, 3, 8, 4, 16, None),
+             (1, 6, 8, 36, 8, None), (1, 5, 12, 45, 11, None),
+             (1, 6, 20, 36, 6, None), (1, 4, 5, 20, 30, None)]
 
 
 @pytest.mark.parametrize("shape", DW_SHAPES)
 def test_dw_walk_equals_plain_in_float64(shape):
-    n, h, c, w, k = shape
+    n, h, c, w, k, kt = shape
     rng = np.random.RandomState(1)
     x = torch.from_numpy(rng.randn(n, h, c, w))
     ct = torch.from_numpy(rng.randn(n, h, k, w))
-    got, _ws = emulate_dw(x, ct)
+    got, _ws = emulate_dw(x, ct, kt=kt)
     want = C.conv3x3_dw_plain(x, ct)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12,
                                atol=1e-12)
 
 
-@pytest.mark.parametrize("shape", DW_SHAPES[:2] + DW_SHAPES[3:])
+@pytest.mark.parametrize("shape", DW_SHAPES[:3] + DW_SHAPES[4:])
 def test_dw_tf32_split_against_float64(shape):
     """Each k-step's three TF32 products summed from zero, then a rounded
-    f32 add into its warpgroup's sums, and the partials summed in the
-    second pass's order: within DW_TOL of float64."""
-    n, h, c, w, k = shape
+    f32 add into its warp's (m16) or warpgroup's (m64) sums, the warps'
+    sums added in order, and the partials summed in the second pass's
+    order: within DW_TOL of float64."""
+    n, h, c, w, k, kt = shape
     rng = np.random.RandomState(2)
     x = torch.from_numpy(rng.randn(n, h, c, w).astype(np.float32))
     ct = torch.from_numpy(rng.randn(n, h, k, w).astype(np.float32))
-    got, _ws = emulate_dw(x, ct, product=_tf32_product, add=_f32_add)
+    got, _ws = emulate_dw(x, ct, product=_tf32_product, add=_f32_add, kt=kt)
     want = C.conv3x3_dw_plain(x.double(), ct.double())
     tol = dict(rtol=DW_TOL["rtol"],
                atol=DW_TOL["scaled_atol"] * float(want.abs().max()))
@@ -345,7 +361,8 @@ def test_conv_plan_fits_a_block(kt):
     tma_box(torch.zeros(9, CC, kt), (0, 0, 0), p["w_box"])
 
 
-DW_TIERS = [(kt, cc) for kt in (8, 16, 32) for cc in (8, 16)]
+# every DwPlan the entry point instantiates
+DW_TIERS = [(8, 8), (8, 16), (16, 8), (16, 16), (32, 16), (64, 16)]
 
 
 @pytest.mark.parametrize("kt,cc", DW_TIERS)
@@ -354,31 +371,36 @@ def test_dw_plan_fits_a_block(kt, cc):
     with at least the five stages that two warpgroups' rows need; the
     staged rows are = 4 mod 32 floats (conflict-free A loads and split
     reads) and x's row covers the TW + 2 halo columns from its aligned
-    start."""
+    start; m16 tiles waste at most 10% of M (9 x CC rows), where m64 tiles
+    would waste 25-44%."""
     p = dw_plan_mirror(kt, cc)
     assert p["smem"] <= SMEM_LIMIT and p["stages"] >= 5
     assert p["xpx"] % 32 == 4 and p["xpc"] % 32 == 4
     assert p["xpx"] >= p["tw"] + 5  # columns j0 - 4 .. j0 + TW
+    rows = p["mt"] * (16 if p["small"] else 64)
+    assert p["small"] == (kt <= 16)
+    if p["small"]:
+        assert 9 * cc / rows >= 0.9 and 9 * cc / -(-9 * cc // 64) / 64 <= 0.75
 
 
 # every weight-gradient shape (x's C, the cotangent's K) of a depth-8
 # step's NHCW stages at batch 3: G's tail at 256-1024 px, D's head at
 # 1024-128 px
-STEP_DW = [(256, 64, 32), (256, 32, 32), (512, 32, 16), (512, 16, 16),
-           (1024, 16, 8), (1024, 8, 8), (1024, 8, 16), (512, 16, 32),
-           (256, 32, 64), (128, 64, 64), (128, 64, 128)]
+STEP_DW = smoke.STEP_DW
 
 
 @pytest.mark.parametrize("res,c,k", STEP_DW)
 def test_dw_plan_at_the_step_shapes(res, c, k):
-    """The plan fills the card (at least one block an SM) over runs of at
-    least 8 rows, and the rows cover each image once."""
+    """The plan fills the card (at least one block an SM) over runs of 8
+    to 24 rows, and the rows cover each image once; m16 tiles at K <=
+    16 (CC 8 at C = 8), m64 tiles above, K = 128 in two k tiles of 64."""
     kt, cc, rpb, row_chunks, col_tiles = C.dw_plan(3, res, c, res, k)
     assert (kt, cc) in DW_TIERS
+    assert kt == C.k_tier(min(k, 64)) and cc == (8 if c <= 8 else 16)
     blocks = 3 * row_chunks * col_tiles * -(-c // cc) * -(-k // kt)
-    assert blocks >= SMS and rpb >= 8
+    assert blocks >= SMS and 8 <= rpb <= 24
     assert (row_chunks - 1) * rpb < res <= row_chunks * rpb
-    assert col_tiles * C._DW_COLS == res
+    assert col_tiles * C.dw_cols(kt) == res
 
 
 def test_tma_route_by_shape():
@@ -402,14 +424,22 @@ def test_tma_route_by_shape():
     assert not p[..., 7:].any()
 
 
+# (N, H, C, W, K) and route: the conv at KT 32 and the dw on m64 tiles;
+# a ragged W; K = 7 (the conv's weights padded, the dw on m16 tiles, CC
+# 16); C = 8 (the dw's m16 tiles over CC 8); K = 72 (the conv in two
+# groups of 64, the dw in two k tiles of 64)
 @pytest.mark.parametrize("shape,route", [((1, 6, 16, 64, 24), "tma"),
                                          ((1, 6, 16, 45, 24), "padded"),
-                                         ((1, 6, 16, 64, 7), "any_k")])
+                                         ((1, 6, 16, 64, 7), "any_k"),
+                                         ((1, 6, 8, 64, 16), "dw_m16_c8"),
+                                         ((1, 6, 16, 64, 72), "k_groups")])
 def test_launch_routes_by_shape(monkeypatch, shape, route):
     """The wrappers' launches, with the library stubbed out: the conv's
     entry point without a workspace, a ragged W passed padded to a multiple
     of 4 and the output sliced back to W, a ragged K with the weights
-    padded; the dw's plan arguments at the padded W."""
+    padded; the dw's plan arguments at the padded W, its tile family
+    (m16 at K <= 16, CC 8 at C <= 8) and workspace (a partial a
+    warpgroup and pixel slice)."""
     calls = []
     monkeypatch.setattr(_build, "launch",
                         lambda name, fn, dev, *a: calls.append((name, fn, a)))
@@ -422,13 +452,32 @@ def test_launch_routes_by_shape(monkeypatch, shape, route):
     name, fn, args = calls[0]
     assert (name, fn) == ("conv3x3_act", "pggan_conv3x3")
     assert len(args) == 14
-    assert args[-9:-2] == (n, h, c, wp, k, C.k_tier(k), 1)  # .., KT, epi
+    # .., KT, epi: K > 64 in groups of 64
+    assert args[-9:-2] == (n, h, c, wp, k, C.k_tier(min(k, 64)), 1)
     # x and w as they are, or padded copies
     assert (args[0] == x.data_ptr()) == (wp == w)
     assert (args[1] == wt.data_ptr()) == (k % 4 == 0)
     monkeypatch.setattr(_build, "use_plain", lambda t: False)
+    monkeypatch.setattr(torch, "empty", _recording_empty(calls))
     C._dw_fwd(x, torch.zeros(n, h, k, w))
-    name, fn, args = calls[1]
+    ws_shape = calls[-2]
+    name, fn, args = calls[-1]
     assert (name, fn) == ("conv3x3_dw", "pggan_conv3x3_dw")
     assert args[-10:-5] == (n, h, c, wp, k)
-    assert args[-5:] == C.dw_plan(n, h, c, wp, k)
+    plan = C.dw_plan(n, h, c, wp, k)
+    assert args[-5:] == plan
+    kt, cc, _rpb, row_chunks, col_tiles = plan
+    assert (kt <= 16, cc) == {"tma": (False, 16), "padded": (False, 16),
+                              "any_k": (True, 16), "dw_m16_c8": (True, 8),
+                              "k_groups": (False, 16)}[route]
+    assert ws_shape == (2 * n * row_chunks * col_tiles, 9, c, k)
+
+
+def _recording_empty(calls):
+    """``torch.empty`` that records each shape it makes in ``calls``."""
+    empty = torch.empty
+
+    def record(shape, **kw):
+        calls.append(tuple(shape))
+        return empty(shape, **kw)
+    return record

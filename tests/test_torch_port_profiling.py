@@ -66,7 +66,7 @@ def test_kernel_names_fall_in_their_groups():
     names = {
         "void (anonymous namespace)::conv3x3_wgmma<16, 2>(CUtensorMap)":
             "conv3x3 kernel",
-        "void (anonymous namespace)::conv3x3_dw_wgmma<64, 8>(CUtensorMap)":
+        "void (anonymous namespace)::conv3x3_dw_partial<16, 8>(CUtensorMap)":
             "conv3x3_dw kernel",
         "void (anonymous namespace)::conv3x3_dw_reduce(float const*)":
             "conv3x3_dw kernel",
@@ -74,7 +74,7 @@ def test_kernel_names_fall_in_their_groups():
         "const*)": "upsample kernel",
         "void (anonymous namespace)::avgpool2x_vec<__nv_bfloat16>(uint4 "
         "const*)": "pool kernel",
-        "void (anonymous namespace)::chain_kernel<8, 8, true>(Args)":
+        "void (anonymous namespace)::chain_kernel<32>(CUtensorMap)":
             "chain kernel",
         "Memcpy DtoH (Device -> Pinned)": "device-to-host copy",
         "something else": "other",

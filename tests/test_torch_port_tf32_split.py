@@ -1,5 +1,5 @@
-"""The arithmetic of the conv and weight-gradient kernels
-(``csrc/tf32_mma.cuh``), held on the CPU: each f32 operand is split into
+"""The arithmetic of the conv, weight-gradient and chain kernels (the split
+in ``csrc/hopper.cuh``), held on the CPU: each f32 operand is split into
 two TF32 values, a = hi + lo, and a product is taken as three TF32 products
 (hi hi + hi lo + lo hi), which keeps the plain version's tolerances, where
 a single TF32 product does not. The tensor cores multiply TF32 values
