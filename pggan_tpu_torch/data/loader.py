@@ -23,6 +23,7 @@ import threading
 import numpy as np
 
 from pggan_tpu_torch.data.native import prep_batch_f32
+from pggan_tpu_torch.utils.profiling import span
 
 
 PREFETCH = 4  # batches the queue holds ahead of the trainer
@@ -100,21 +101,28 @@ class DataIterator:
 
     def _worker(self):
         while not self._stop.is_set():
-            idxs = self.sampler.take_batch(self.batch_size)
             try:
-                raw = self.dataset.raw_batch(idxs)
-                if raw is not None and self.raw:
-                    batch = raw
-                elif raw is not None:
-                    batch = prep_batch_f32(
-                        raw, self.dataset.alpha,
-                        self.dataset.range_in, self.dataset.range_out)
-                else:
-                    batch = np.stack([self.dataset[i] for i in idxs], axis=0)
+                # in ``SPANS`` alone: the card's idle gaps are the main
+                # thread's to name
+                with span("loader.batch", profile=False):
+                    batch = self._batch(
+                        self.sampler.take_batch(self.batch_size))
             except Exception as e:  # surface worker errors to the consumer
                 self._put((None, e))
                 return
             self._put((batch, None))
+
+    def _batch(self, idxs) -> np.ndarray:
+        """The batch of items ``idxs``: the raw batch, prepped unless
+        ``raw``, or the items stacked one by one."""
+        raw = self.dataset.raw_batch(idxs)
+        if raw is not None and self.raw:
+            return raw
+        if raw is not None:
+            return prep_batch_f32(raw, self.dataset.alpha,
+                                  self.dataset.range_in,
+                                  self.dataset.range_out)
+        return np.stack([self.dataset[i] for i in idxs], axis=0)
 
     def _put(self, item):
         while not self._stop.is_set():

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from pggan_tpu_torch.utils.misc import random_latents
+from pggan_tpu_torch.utils.profiling import span
 
 
 def disable_tf32() -> None:
@@ -59,6 +60,11 @@ def sample_images(G, depth, alpha, num_samples, *, minibatch=0, rng=None,
     replica of G each (a device may repeat: two replicas on one card); by
     default every visible card when G is on one, else G's device.
     """
+    with span("sample.request"):
+        return _sample(G, depth, alpha, num_samples, minibatch, rng, devices)
+
+
+def _sample(G, depth, alpha, num_samples, minibatch, rng, devices):
     disable_tf32()
     if rng is None:
         rng = np.random.RandomState(0)
@@ -90,16 +96,17 @@ def sample_images(G, depth, alpha, num_samples, *, minibatch=0, rng=None,
         done = 0
         while done < num_samples:
             take = min(chunk, num_samples - done)
-            z = random_latents(take, G.latent_size, rng)
-            if take < per * len(devices):  # fixed shapes: pad, run, slice
-                z = np.concatenate([z, np.zeros(
-                    (per * len(devices) - take, G.latent_size), z.dtype)])
-            outs = []
-            for i, d in enumerate(devices):
-                # non_blocking: a blocking upload would wait for the card
-                zi = torch.from_numpy(z[i * per:(i + 1) * per]).to(
-                    d, non_blocking=True)
-                outs.append(replicas[i](zi, depth, alpha, fade=fade))
+            with span("sample.issue"):
+                z = random_latents(take, G.latent_size, rng)
+                if take < per * len(devices):  # fixed shapes: pad, run, slice
+                    z = np.concatenate([z, np.zeros(
+                        (per * len(devices) - take, G.latent_size), z.dtype)])
+                outs = []
+                for i, d in enumerate(devices):
+                    # non_blocking: a blocking upload would wait for the card
+                    zi = torch.from_numpy(z[i * per:(i + 1) * per]).to(
+                        d, non_blocking=True)
+                    outs.append(replicas[i](zi, depth, alpha, fade=fade))
             for i, imgs in enumerate(outs):
                 keep = min(per, take - i * per)
                 if keep > 0:
@@ -144,6 +151,9 @@ def _stream(device):
 
 
 def _drain(out, event, buf, take, row) -> None:
-    """Wait for one chunk's copy and move it into rows ``row:row+take``."""
-    event.synchronize()
-    out[row:row + take] = buf[:take].numpy()
+    """Wait for one chunk's copy and move it into rows ``row:row+take``
+    (the rows' first touch: ``out`` is fresh)."""
+    with span("sample.drain_wait"):
+        event.synchronize()
+    with span("sample.drain_copy"):
+        out[row:row + take] = buf[:take].numpy()

@@ -45,6 +45,8 @@ import time
 import numpy as np
 import torch
 
+from pggan_tpu_torch.utils.profiling import span
+
 
 class Trainer:
     """Progressive-GAN training engine (reference trainer.py:7-19, with a
@@ -164,11 +166,12 @@ class Trainer:
         self.call_plugins("end", 1)
 
     def _rollover_tick(self):
-        self.cur_tick += 1
-        self.tick_start_nimg = self.cur_nimg
-        self.stats["kimg_stat"]["val"] = self.cur_nimg / 1000.0
-        self.stats["tick_stat"]["val"] = self.cur_tick
-        self.call_plugins("epoch", self.cur_tick)
+        with span("trainer.tick"):  # the monitors fetch their values here
+            self.cur_tick += 1
+            self.tick_start_nimg = self.cur_nimg
+            self.stats["kimg_stat"]["val"] = self.cur_nimg / 1000.0
+            self.stats["tick_stat"]["val"] = self.cur_tick
+            self.call_plugins("epoch", self.cur_tick)
 
     def _device(self) -> torch.device:
         return next(self.G.parameters()).device
@@ -248,12 +251,11 @@ class Trainer:
         fade = self.alpha < 1.0
         self._await_precompile((self.depth, batch, fade, group))
         gstep = self.builder.group_step_fn(self.depth, batch, fade, group)
-        metrics = gstep(self.state, reals, alphas, lrs_d, lrs_g)
+        with span("trainer.issue"):
+            metrics = gstep(self.state, reals, alphas, lrs_d, lrs_g)
         self._dispatched(staged)
         self.iterations += group
-        self.call_plugins("iteration", self.iterations,
-                          metrics["G_loss"], metrics["D_loss"],
-                          metrics["D_real"], metrics["D_fake"])
+        self._drain_iteration_plugins(metrics)
 
     def _await_precompile(self, key) -> None:
         """A dispatch at ``key`` whose precompile (``DepthManager(...,
@@ -262,7 +264,14 @@ class Trainer:
         failure."""
         wait = getattr(self.builder, "await_precompile", None)
         if wait is not None:
-            wait(key)
+            with span("trainer.await_precompile"):
+                wait(key)
+
+    def _drain_iteration_plugins(self, metrics) -> None:
+        with span("trainer.plugins"):
+            self.call_plugins("iteration", self.iterations,
+                              metrics["G_loss"], metrics["D_loss"],
+                              metrics["D_real"], metrics["D_fake"])
 
     # -- the pinned staging pool and the backpressure ------------------------
     def _upload(self, raw: list, lead: tuple):
@@ -313,7 +322,8 @@ class Trainer:
         budget = self.inflight_budget_mb * (1024 * 1024)
         while (budget and self._inflight_bytes > budget
                and len(self._inflight) > 1):
-            self._inflight[0][0].synchronize()
+            with span("trainer.throttle"):
+                self._inflight[0][0].synchronize()
             self._release()
 
     def _release(self) -> None:
@@ -335,22 +345,29 @@ class Trainer:
         ``(reals, local batch, staged)``, ``staged`` as ``_upload`` gives
         it."""
         repeats = self.D_training_repeats
-        raw = [np.asarray(next(self.dataiter))
-               for _ in range(n_steps * repeats)]
+        with span("trainer.fetch"):
+            raw = [np.asarray(next(self.dataiter))
+                   for _ in range(n_steps * repeats)]
         lead = (n_steps, repeats) if n_steps > 1 else (repeats,)
-        reals, staged = self._upload(raw, lead)
+        with span("trainer.stage"):
+            reals, staged = self._upload(raw, lead)
         if reals.dtype == torch.uint8:
             ds = self.dataset
             prep = self.builder.prep_fn(
                 ds.range_in if ds is not None else (0, 255),
                 ds.range_out if ds is not None else (-1, 1))
-            reals = prep(reals, alpha)
+            with span("trainer.issue"):
+                reals = prep(reals, alpha)
         elif reals.dtype != torch.float32:
             reals = reals.to(torch.float32)
         return reals, raw[0].shape[0], staged
 
     # -- hot loop (reference trainer.py:85-115) -------------------------------
     def train(self):
+        with span("trainer.dispatch"):
+            self._train()
+
+    def _train(self):
         group, alphas = self._plan_group()
         if group > 1:
             self._train_grouped(group, alphas)
@@ -362,11 +379,10 @@ class Trainer:
         fade = self.alpha < 1.0
         self._await_precompile((self.depth, batch, fade))
         step = self.builder.step_fn(self.depth, batch, fade=fade)
-        metrics = step(self.state, reals, np.float32(self.alpha),
-                       np.float32(self.lr_d), np.float32(self.lr_g))
+        with span("trainer.issue"):
+            metrics = step(self.state, reals, np.float32(self.alpha),
+                           np.float32(self.lr_d), np.float32(self.lr_g))
         self._dispatched(staged)
 
         self.iterations += 1
-        self.call_plugins("iteration", self.iterations,
-                          metrics["G_loss"], metrics["D_loss"],
-                          metrics["D_real"], metrics["D_fake"])
+        self._drain_iteration_plugins(metrics)

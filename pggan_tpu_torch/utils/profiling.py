@@ -15,12 +15,23 @@ kernels and host launches, time by group and by name.
 On the card the rows are the CUDA kernels and copies. ``device="cpu"``
 reads a CPU-only window instead (the host's operators, nested ones
 included): for tests and rehearsals, never a device number.
+
+``span(name)`` marks what the host does inside the program (the trainer's
+fetch, staging and issue, the loader's batches, sampling's issue and
+drain). With no profiler running it checks one flag and does nothing
+else. Inside a profiled window it opens a host-only range ``pggan/<name>``
+in the profile, on the clock of the card's events and with no event of
+its own on the card, and appends a ``Span`` to ``SPANS``; ``span_totals``
+sums them by name and ``clear_spans`` empties them.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import itertools
 import math
+import threading
 import time
 
 import torch
@@ -167,3 +178,75 @@ def device_profile(prof, wall_ms: float, per: int, tag: str, unit: str,
                                              for g, n in counts.items()},
             f"top_kernels_ms_per_{unit}": dict(list(by_name.items())[:12]),
             f"ms_per_{unit}_by_name": by_name}
+
+
+# -- spans ---------------------------------------------------------------------
+
+# A span as recorded: ``thread`` is ``threading.get_ident()``, the times are
+# ``time.perf_counter_ns()``, ``index`` numbers the span and ``parent`` is the
+# index of the span that enclosed it on the same thread (None for a root).
+Span = collections.namedtuple("Span",
+                              "name thread start_ns end_ns parent index")
+SPANS_MAX = 1 << 16  # spans kept: the newest, however long a profile runs
+SPANS: collections.deque = collections.deque(maxlen=SPANS_MAX)
+# A host event that is no user annotation, so the card's trace gets no echo
+# of it (``record_function``'s ranges have one spanning their kernels).
+_HOST_RANGE = torch._C._profiler._RecordFunctionFast
+_profiler_state = torch.autograd.profiler  # ``_is_profiler_enabled``
+_ids = itertools.count()
+_open = threading.local()  # each thread's stack of open span indices
+_NO_SPAN = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "range", "parent", "index", "start")
+
+    def __init__(self, name: str, profile: bool):
+        self.name = name
+        self.range = _HOST_RANGE("pggan/" + name) if profile else None
+
+    def __enter__(self):
+        if self.range is not None:
+            self.range.__enter__()
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        self.parent = stack[-1] if stack else None
+        self.index = next(_ids)
+        stack.append(self.index)
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        _open.stack.pop()
+        SPANS.append(Span(self.name, threading.get_ident(), self.start, end,
+                          self.parent, self.index))
+        return False
+
+
+def span(name: str, profile: bool = True):
+    """A context manager that records the host's work inside it while a
+    profiler runs (``torch.profiler``: the benchmark's traced window, the
+    train CLI's ``profile_dir``), and otherwise does nothing. ``profile``
+    False keeps it out of the profile, in ``SPANS`` alone: for worker
+    threads, whose spans would cover the card's idle gaps that the main
+    thread's work leaves."""
+    if not _profiler_state._is_profiler_enabled:
+        return _NO_SPAN
+    return _Span(name, profile)
+
+
+def span_totals() -> dict:
+    """``{name: (count, seconds)}`` of the spans in ``SPANS``."""
+    out = {}
+    for s in list(SPANS):  # a copy: other threads may append meanwhile
+        count, seconds = out.get(s.name, (0, 0.0))
+        out[s.name] = (count + 1, seconds + (s.end_ns - s.start_ns) / 1e9)
+    return out
+
+
+def clear_spans() -> None:
+    SPANS.clear()
