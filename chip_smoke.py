@@ -131,6 +131,21 @@ PRECOMPILE_BAR = ("bit for bit, or: generator equal and the update within "
                   "cuDNN off bit for bit")
 REPLAY_ALPHA, REPLAY_LR = 0.3, (0.6e-3, 0.3e-3)
 
+# Phase W, the wide-channel NCHW conv pair (ops/wide_conv.py): one eager
+# fade step of each benchmark train cell (configuration shape, depth,
+# batch) and one serve forward (depth 7, chunk 16) give every call the
+# route sends to the kernels; each distinct call is held against its twin
+# in float64 (relative to the reference's largest element; cuDNN's float32
+# error at the same call, TF32 off, printed beside) and timed back to back
+# beside cuDNN's call for the same function. Then a replayed d4 step
+# against the eager step from one state, bit for bit (cuDNN held to its
+# deterministic algorithms on both).
+WIDE_CELLS = (("rgb1024 d4", (1, 3, 1024, 1024), 4, 16),
+              ("rgb1024 d8", (1, 3, 1024, 1024), 8, 3),
+              ("spec512 d7", (1, 1, 512, 512), 7, 6))
+WIDE_SERVE = ("spec512 serve d7", (1, 1, 512, 512), 7, 16)
+WIDE_TOL = 1e-5
+
 # NHCW shapes of the depth-8 tail, stages 5-7 (256, 512, 1024 px):
 # (upsample input), and (C, K1, K2) of each stage's conv pair
 STAGES = [((BATCH, 128, 64, 128), (64, 32, 32)),
@@ -177,6 +192,9 @@ HBM_BYTES_PER_S = 3.35e12
 TF32X3_FLOP_PER_S = 495e12 / 3
 FMA_FLOP_PER_S = 67e12
 SERVE_ONLY = ("conv3x3_chain", "conv3x3_chain_pn")
+# the wide-channel conv kernel's launches in a depth-8 paper G forward: the
+# NCHW stages' c2 at 16, 32, 64 and 128 px (ops/wide_conv.py's rule)
+WIDE_PER_FORWARD = 4
 SERVE_KERNELS = ("upsample2x", "conv3x3", "conv3x3_act", "conv3x3_act_pn",
                  *SERVE_ONLY)
 BF16_KERNELS = ("avgpool2x_bf16", "upsample2x_bf16")
@@ -809,26 +827,31 @@ def serve_phase(torch, card):
     from pggan_tpu_torch.checkpoint import save_snapshot
     from pggan_tpu_torch.models.generator import Generator
     from pggan_tpu_torch.sampling import sample_images
-    total = {k: 0 for k in KERNELS}
+    # the ported kernels' counts, and the wide conv's
+    total = collections.Counter({k: 0 for k in KERNELS})
     paper = dict(dataset_shape=(1, 3, 1024, 1024))  # fmap_base 4096 etc.
     fwd = -(-40 // BATCH)  # forwards of a 40-image request
+    wide = WIDE_PER_FORWARD
     runs = [
         # (tag, config, alpha, extra flags, n images, expected launches,
         #  images checked against the CPU)
         ("paper, stable, chain", {}, 1.0, [], 40,
-         {"conv3x3_chain_pn": 3 * fwd, "upsample2x": 3 * fwd}, 2),
+         {"conv3x3_chain_pn": 3 * fwd, "upsample2x": 3 * fwd,
+          "wide_conv": wide * fwd}, 2),
         ("paper, fade 0.5, chain", {}, 0.5, [], 40,
-         {"conv3x3_chain_pn": 3 * fwd, "upsample2x": 4 * fwd}, 2),
+         {"conv3x3_chain_pn": 3 * fwd, "upsample2x": 4 * fwd,
+          "wide_conv": wide * fwd}, 2),
         ("paper, stable, chain off", {}, 1.0,
          ["--inference_chain", "False"], 40,
-         {"conv3x3_act_pn": 6 * fwd, "upsample2x": 3 * fwd}, 2),
+         {"conv3x3_act_pn": 6 * fwd, "upsample2x": 3 * fwd,
+          "wide_conv": wide * fwd}, 2),
         ("pixelnorm off, chain", {"pixelnorm": False}, 1.0, [], BATCH,
-         {"conv3x3_chain": 3, "upsample2x": 3}, 1),
+         {"conv3x3_chain": 3, "upsample2x": 3, "wide_conv": wide}, 1),
         ("pixelnorm off, chain off", {"pixelnorm": False}, 1.0,
          ["--inference_chain", "False"], BATCH,
-         {"conv3x3_act": 6, "upsample2x": 3}, 1),
+         {"conv3x3_act": 6, "upsample2x": 3, "wide_conv": wide}, 1),
         ("relu", {"leakyrelu": False}, 1.0, [], BATCH,
-         {"conv3x3": 6, "upsample2x": 3}, 1),
+         {"conv3x3": 6, "upsample2x": 3, "wide_conv": wide}, 1),
     ]
     with tempfile.TemporaryDirectory() as tmp:
         for i, (tag, cfg, alpha, flags, n, expect, n_cpu) in enumerate(runs):
@@ -2700,7 +2723,8 @@ def export_phase(torch, f32_snapshot, bf16_snapshot, root):
     log(f"  launches while exporting a fade (alpha 0.5) G: "
         f"{export_launches}; after one ordinary forward of it: "
         f"{forward_launches}")
-    if export_launches or forward_launches != {"upsample2x": 1}:
+    if export_launches or forward_launches != {
+            "upsample2x": 1, "wide_conv": WIDE_PER_FORWARD}:
         raise AssertionError("the export reached a kernel, or the forward "
                              "did not")
     G_cpu, _ = load_snapshot(fade_snap, device="cpu")
@@ -3337,7 +3361,8 @@ def replicas_phase(torch):
         got = run(two)
         counts = dict(_build.LAUNCHES)
         fwd = 2 * chunks  # a forward on each replica a chunk
-        expect = {conv: (3 if chain else 6) * fwd, "upsample2x": 3 * fwd}
+        expect = {conv: (3 if chain else 6) * fwd, "upsample2x": 3 * fwd,
+                  "wide_conv": WIDE_PER_FORWARD * fwd}
         if counts != expect:
             raise AssertionError(f"two replicas, chain {chain}: launches "
                                  f"{counts}, expected {expect}")
@@ -4133,6 +4158,223 @@ def log_stretch(name, row) -> None:
             f"step, the same steps off {ov['off_ms_per_step']:.2f}")
 
 
+# -- the wide-channel NCHW conv pair (phase W) ---------------------------------
+
+def wide_conv_calls(torch):
+    """Every call the route sends to the wide-channel kernels in one eager
+    fade step of each ``WIDE_CELLS`` configuration and one ``WIDE_SERVE``
+    forward: {label: {(kernel, pass, shapes): count}}, shapes those of the
+    Functions' forward, x (N, C, H, W) and w (K, 3, 3, C) or gy (N, K, H,
+    W)."""
+    from pggan_tpu_torch.models import Discriminator, Generator
+    from pggan_tpu_torch.ops import wide_conv as wc
+    from pggan_tpu_torch.training import TrainStepBuilder, init_state
+    calls = collections.defaultdict(collections.Counter)
+    fwd, dw = wc._fwd, wc._dw
+    at = [None]  # the label being recorded
+
+    def fwd_logged(x, w, tag):
+        calls[at[0]]["wide_conv", tag,
+                     (tuple(x.shape), tuple(w.shape))] += 1
+        return fwd(x, w, tag)
+
+    def dw_logged(x, gy):
+        calls[at[0]]["wide_conv_dw", "weight_grad",
+                     (tuple(x.shape), tuple(gy.shape))] += 1
+        return dw(x, gy)
+    wc._fwd, wc._dw = fwd_logged, dw_logged
+    try:
+        for label, shape, depth, batch in WIDE_CELLS:
+            at[0] = label
+            G = Generator(shape, generator=torch.Generator().manual_seed(SEED))
+            D = Discriminator(shape,
+                              generator=torch.Generator().manual_seed(SEED))
+            G, D = G.cuda(), D.cuda()
+            state = init_state(G, D, seed=SEED)
+            builder = TrainStepBuilder(G, D, cuda_graphs=False)
+            u8 = torch.randint(0, 256, builder.real_batch_shape(depth, batch),
+                               dtype=torch.uint8,
+                               generator=torch.Generator().manual_seed(SEED))
+            builder.step_fn(depth, batch, True)(
+                state, builder.prep_fn()(u8.cuda(), 0.5), 0.5, LR, LR)
+            torch.cuda.synchronize()
+            log(f"  {label}: {sum(calls[label].values())} wide conv calls")
+            del G, D, state, builder
+        label, shape, depth, batch = WIDE_SERVE
+        at[0] = label
+        G = Generator(shape, generator=torch.Generator().manual_seed(SEED))
+        with torch.no_grad():
+            G.cuda()(torch.randn(batch, G.latent_size, device="cuda"), depth,
+                     1.0, False)
+        torch.cuda.synchronize()
+        del G
+    finally:
+        wc._fwd, wc._dw = fwd, dw
+    torch.cuda.empty_cache()
+    return calls
+
+
+def wide_conv_shapes(torch, calls) -> list:
+    """Each distinct call of ``wide_conv_calls`` (merged over its labels):
+    the kernel against its twin in float64 and cuDNN's float32 call against
+    the same reference (each relative to the reference's largest element),
+    two kernel calls bit for bit, and both timed back to back
+    (``burst_ms``): the forward against ``F.conv2d``, an input-gradient
+    call against ``convolution_backward``'s input gradient, the weight
+    gradient against its weight gradient."""
+    from pggan_tpu_torch.ops import wide_conv as wc
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for (name, tag, (xs, other)), count in sorted(calls.items()):
+        x = torch.randn(xs, device="cuda", generator=g)
+        if name == "wide_conv":
+            w = torch.randn(other, device="cuda", generator=g) / math.sqrt(
+                9 * xs[1])
+            kernel = lambda x=x, w=w: wc.wide_conv(x, w)  # noqa: E731
+            ref = wc.wide_conv_plain(x.double(), w.double())
+            w_oihw = w.permute(0, 3, 1, 2).contiguous()
+            if tag == "input_grad":  # x is the output gradient here
+                # the conv whose input gradient this is: w = flip_io(w0),
+                # w0 as OIHW
+                w0 = w.flip(1, 2).permute(3, 0, 1, 2).contiguous()
+                x0 = torch.empty((xs[0], w0.shape[1], xs[2], xs[3]),
+                                 device="cuda")
+                lib = lambda x=x, x0=x0, w0=w0: \
+                    torch.ops.aten.convolution_backward(  # noqa: E731
+                        x, x0, w0, None, [1, 1], [1, 1], [1, 1], False,
+                        [0, 0], 1, [True, False, False])[0]
+            else:
+                lib = lambda x=x, w=w_oihw: F.conv2d(  # noqa: E731
+                    x, w, padding=1)
+            lib_out = lib()
+            flops = wc.conv_flops(xs, other[0])
+        else:
+            gy = torch.randn(other, device="cuda", generator=g)
+            kernel = lambda x=x, gy=gy: wc.wide_conv_dw(x, gy)  # noqa: E731
+            ref = wc.wide_conv_dw_plain(x.double(), gy.double())
+            k, c = other[1], xs[1]
+            w_shape = torch.empty((k, c, 3, 3), device="cuda")
+            lib_out = torch.ops.aten.convolution_backward(
+                gy, x, w_shape, None, [1, 1], [1, 1], [1, 1], False, [0, 0],
+                1, [False, True, False])[1].permute(0, 2, 3, 1)
+            lib = lambda x=x, gy=gy, w=w_shape: \
+                torch.ops.aten.convolution_backward(  # noqa: E731
+                    gy, x, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0],
+                    1, [False, True, False])
+            flops = wc.conv_flops(xs, k)
+        got = kernel()
+        scale = float(ref.abs().max())
+        err = float((got.double() - ref).abs().max()) / scale
+        lib_err = float((lib_out.double() - ref).abs().max()) / scale
+        repeat = torch.equal(got, kernel())
+        del got, ref, lib_out
+        ms, lib_ms = burst_ms(torch, kernel, 20), burst_ms(torch, lib, 20)
+        row = {"kernel": name, "pass": tag, "x": list(xs),
+               "other": list(other), "count": count, "err": err,
+               "cudnn_err": lib_err, "repeat_bitwise": repeat, "ms": ms,
+               "cudnn_ms": lib_ms,
+               "tflop_s": flops / ms / 1e9,
+               "bound_share": flops / TF32X3_FLOP_PER_S * 1e3 / ms}
+        rows.append(row)
+        log(f"    {name} {tag} x {xs} {tuple(other)} x{count}: err "
+            f"{err:.1e} (cuDNN {lib_err:.1e}), {ms:.4f} ms "
+            f"({row['tflop_s']:.1f} TFLOP/s, {row['bound_share']:.1%} of the "
+            f"bound) against cuDNN {lib_ms:.4f} ms: {lib_ms / ms:.2f}x")
+        if err > WIDE_TOL or not repeat:
+            raise AssertionError(f"{name} {tag} {xs} {other}: err {err:.2e} "
+                                 f"(bar {WIDE_TOL}), repeat {repeat}")
+        del x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def wide_conv_replay(torch) -> dict:
+    """A replayed d4 fade step (batch 16) against the eager step of a twin
+    restored from the same state, on the same reals and draws, bit for bit,
+    with cuDNN's deterministic algorithms on both (the kernels sum in a
+    fixed order)."""
+    from pggan_tpu_torch import checkpoint
+    from pggan_tpu_torch.models import Discriminator, Generator
+    from pggan_tpu_torch.training import TrainStepBuilder, init_state
+    label, shape, depth, batch = WIDE_CELLS[0]
+
+    def models():
+        G = Generator(shape, generator=torch.Generator().manual_seed(SEED))
+        D = Discriminator(shape, generator=torch.Generator().manual_seed(SEED))
+        return G.cuda(), D.cuda()
+    torch.backends.cudnn.deterministic = True
+    try:
+        G, D = models()
+        state = init_state(G, D, seed=SEED)
+        builder = TrainStepBuilder(G, D)
+        graphed = builder.step_fn(depth, batch, True)
+        u8 = torch.randint(0, 256, builder.real_batch_shape(depth, batch),
+                           dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(SEED))
+        reals = builder.prep_fn()(u8.cuda(), REPLAY_ALPHA)
+        for _ in range(2):  # the eager first call, then the capture
+            graphed(state, reals, 0.5, LR, LR)
+        G2, D2 = models()
+        twin = init_state(G2, D2, seed=SEED + 5)
+        checkpoint.restore_training_state(
+            twin, checkpoint.training_state_dict(state))
+        eager = TrainStepBuilder(G2, D2, cuda_graphs=False).step_fn(
+            depth, batch, True)
+        got = {k: float(v) for k, v in
+               graphed(state, reals, REPLAY_ALPHA, *REPLAY_LR).items()}
+        want = {k: float(v) for k, v in
+                eager(twin, reals, REPLAY_ALPHA, *REPLAY_LR).items()}
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(p, q) for p, q in zip(
+            [*G.parameters(), *D.parameters()],
+            [*G2.parameters(), *D2.parameters()]))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    out = {"losses_equal": got == want, "params_bitwise": bitwise,
+           "losses": got}
+    log(f"  {label}: a replayed step against the eager step: losses equal "
+        f"{got == want}, parameters bit for bit {bitwise}")
+    if not (bitwise and got == want):
+        raise AssertionError(f"the replay parted from the eager step: {out}")
+    del G, D, G2, D2, state, twin
+    torch.cuda.empty_cache()
+    return out
+
+
+def wide_conv_phase(torch) -> dict:
+    """Phase W: the wide-channel NCHW conv pair at every call of the
+    benchmark's train cells and serve, then a replay against the eager
+    step. The sums: per cell and kernel, the kernel's and cuDNN's back to
+    back ms over a step's calls, and the bound (operations at the
+    three-product TF32 rate)."""
+    calls = wide_conv_calls(torch)
+    merged = collections.Counter()
+    for per in calls.values():
+        merged.update(per)
+    rows = wide_conv_shapes(torch, calls=merged)
+    by_call = {(r["kernel"], r["pass"], (tuple(r["x"]), tuple(r["other"]))):
+               r for r in rows}
+    sums = {}
+    for label, per in calls.items():
+        for (name, tag, shapes), count in per.items():
+            r = by_call[name, tag, shapes]
+            t = sums.setdefault(label, {}).setdefault(
+                name, {"calls": 0, "ms": 0.0, "cudnn_ms": 0.0,
+                       "bound_ms": 0.0})
+            t["calls"] += count
+            t["ms"] += count * r["ms"]
+            t["cudnn_ms"] += count * r["cudnn_ms"]
+            t["bound_ms"] += count * r["bound_share"] * r["ms"]
+    for label, per in sums.items():
+        for name, t in per.items():
+            log(f"  {label} {name}: {t['calls']} calls, {t['ms']:.3f} ms "
+                f"back to back ({t['bound_ms'] / t['ms']:.1%} of the "
+                f"bound {t['bound_ms']:.3f} ms) against cuDNN "
+                f"{t['cudnn_ms']:.3f} ms")
+    return {"shapes": rows, "sums": sums, "replay": wide_conv_replay(torch)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4178,6 +4420,13 @@ def main() -> int:
     checks.train_shapes(bf16_step_calls(torch), BF16_KERNELS,
                         "bf16 fade step")
     log(f"phase 3 passed ({time.perf_counter() - t_start:.0f} s so far)")
+
+    # phase W: the wide-channel NCHW conv pair
+    log(f"phase W: the wide-channel NCHW conv pair at every call of the "
+        f"benchmark's train cells and serve, against float64, beside cuDNN, "
+        f"on {card}")
+    wide = wide_conv_phase(torch)
+    log(f"phase W passed ({time.perf_counter() - t_start:.0f} s so far)")
 
     # phase 4: the slice, through the CLI
     log("phase 4: serve a random paper-config snapshot (depth 8, 1024 px)")
@@ -4432,6 +4681,7 @@ def main() -> int:
     print(json.dumps({"group": {**group, "card": card_line}}))
     print(json.dumps({"precompile": {**precompile, "card": card_line}}))
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"wide_conv": {**wide, "card": card_line}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -4440,11 +4690,20 @@ def main() -> int:
 
 def worker(argv) -> int:
     """A process that a phase starts: ``--gloo-rank WORK`` (phase B)
-    or ``--cli-rank OUT SAVED ARGV...`` (phase C, under torchrun)."""
+    or ``--cli-rank OUT SAVED ARGV...`` (phase C, under torchrun); or
+    ``--wide-conv``, phase W alone."""
     if argv[0] == "--gloo-rank":
         return gloo_rank(argv[1])
     if argv[0] == "--cli-rank":
         return cli_rank(argv[1], argv[2], argv[3:])
+    if argv[0] == "--wide-conv":  # phase W alone
+        import torch
+        from pggan_tpu_torch.ops import _build
+        from pggan_tpu_torch.sampling import disable_tf32
+        _build.library()
+        disable_tf32()
+        print(json.dumps({"wide_conv": wide_conv_phase(torch)}))
+        return 0
     raise SystemExit(f"chip_smoke.py takes no arguments, got {argv}")
 
 

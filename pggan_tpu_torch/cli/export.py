@@ -80,12 +80,14 @@ def export_main(generator_path, out, batch, platforms=(), verify=True,
 
 
 def verify_artifact(artifact, G, depth, alpha, batches) -> float:
-    """The loaded artifact against a direct forward of the same tail-off G
-    (``exportable``) on the artifact's platform, at each batch size, within
-    atol 1e-5; returns the largest difference. Both run with cuDNN held to
-    its deterministic algorithms: its default ones for G's transposed
-    convs may sum with atomics, so two runs of one program need not agree
-    bit for bit."""
+    """The loaded artifact against a direct forward of the program it was
+    traced from (``exportable``'s tail-off G with ``kernels=False``) on the
+    artifact's platform, at each batch size, within atol 1e-5; returns the
+    largest difference. Both run with cuDNN held to its deterministic
+    algorithms: its default ones for G's transposed convs may sum with
+    atomics, so two runs of one program need not agree bit for bit. (With
+    the kernels, the NCHW stages' convs would run ``ops/wide_conv.py``'s
+    kernel pair, whose sums differ from cuDNN's in the last bits.)"""
     program = load_exported(artifact)
     platform = program_platform(program)
     run = program.module()
@@ -100,7 +102,7 @@ def verify_artifact(artifact, G, depth, alpha, batches) -> float:
         try:
             with torch.no_grad():
                 got = run(z)
-                want = direct(z, depth, alpha, alpha < 1.0)
+                want = direct(z, depth, alpha, alpha < 1.0, kernels=False)
         finally:
             torch.backends.cudnn.deterministic = deterministic
         err = float((got - want).abs().max())

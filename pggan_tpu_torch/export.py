@@ -25,9 +25,9 @@ XLA (``pggan_tpu/export.py:27-33``): a kernel reached through ``ctypes``
 cannot be traced, and the artifact must not need this package's library.
 So the export turns the NHCW tail off (and the serve's chain with it) and
 calls ``G(..., kernels=False)``, which runs the NCHW upsample on its plain
-version: an argument only this module sets, not a catch on failure. An
-ordinary forward of the same G on the card still launches the upsample
-kernel.
+version and the NCHW convs on ``F.conv2d``: an argument only this module
+sets, not a catch on failure. An ordinary forward of the same G on the
+card still launches the upsample kernel and the wide conv kernel.
 
 ``platforms``: a ``torch.export`` program is traced on one device, so an
 artifact is for one platform (``cpu`` or ``cuda``); more than one raises.

@@ -122,24 +122,25 @@ class Generator(nn.Module):
         return "lrelu" if self.leakyrelu else "relu"
 
     # -- low-resolution NCHW stages -------------------------------------------
-    def _conv(self, p, x, *, pad, use_pixelnorm=None, act="default"):
+    def _conv(self, p, x, *, pad, use_pixelnorm=None, act="default",
+              kernels=True):
         return equalized_conv2d(
             p, x, padding=pad, wscale=self.wscale,
             act=self.act if act == "default" else act,
             use_pixelnorm=self.pixelnorm if use_pixelnorm is None
             else use_pixelnorm,
-            eps=self.eps, compute_dtype=self._compute)
+            eps=self.eps, compute_dtype=self._compute, kernels=kernels)
 
-    def _block(self, p, h, first: bool):
-        h = self._conv(p["c1"], h, pad=3 if first else 1)
-        return self._conv(p["c2"], h, pad=1)
+    def _block(self, p, h, first: bool, kernels=True):
+        h = self._conv(p["c1"], h, pad=3 if first else 1, kernels=kernels)
+        return self._conv(p["c2"], h, pad=1, kernels=kernels)
 
-    def _block_up(self, p, h):
+    def _block_up(self, p, h, kernels=True):
         """Growth-stage block with the 2x upsample fused into c1."""
         h = equalized_conv2d_up2x(p["c1"], h, wscale=self.wscale,
                                   act=self.act, use_pixelnorm=self.pixelnorm,
                                   eps=self.eps, compute_dtype=self._compute)
-        return self._conv(p["c2"], h, pad=1)
+        return self._conv(p["c2"], h, pad=1, kernels=kernels)
 
     def _torgb(self, p, h):
         return self._conv(p["torgb"], h, pad=0, use_pixelnorm=False, act=None)
@@ -201,8 +202,9 @@ class Generator(nn.Module):
         blend; ``fade=False`` serves the stable graph, which equals the fade
         graph at alpha 1 (reference network.py:118-139). ``kernels=False``
         (set by the export only, on a G without the tail) runs the NCHW
-        upsample on its plain version: the forward is then PyTorch
-        operators only, which ``torch.export`` can trace."""
+        upsample on its plain version and the NCHW convs on ``F.conv2d``:
+        the forward is then PyTorch operators only, which ``torch.export``
+        can trace."""
         if not (0 <= depth <= self.max_depth):
             raise ValueError(f"depth {depth} out of range "
                              f"[0, {self.max_depth}]")
@@ -210,7 +212,7 @@ class Generator(nn.Module):
         h = z.reshape(z.shape[0], z.shape[-1], 1, 1).to(torch.float32)
         if self.normalize_latents:
             h = pixelnorm(h, self.eps)
-        h = self._block(self.block0, h, first=True)
+        h = self._block(self.block0, h, first=True, kernels=kernels)
         if depth == 0:
             return self._torgb(self.block0, h).float().permute(0, 2, 3, 1)
         tail = self._pallas_tail_start(depth)
@@ -230,20 +232,22 @@ class Generator(nn.Module):
         prev_p = self.blocks[depth - 2] if depth > 1 else self.block0
         if self.fused_scale:
             for i in range(depth - 1):
-                h = self._block_up(self.blocks[i], h)
+                h = self._block_up(self.blocks[i], h, kernels)
             ult = self._torgb(self.blocks[depth - 1],
-                              self._block_up(self.blocks[depth - 1], h))
+                              self._block_up(self.blocks[depth - 1], h,
+                                             kernels))
             if fade:
                 # toRGB (1x1) commutes with nearest upsample: apply at low
                 # res, then upsample (reference order network.py:129-135)
                 prev_rgb = up(self._torgb(prev_p, h))
         else:
             for i in range(depth - 1):
-                h = self._block(self.blocks[i], up(h), first=False)
+                h = self._block(self.blocks[i], up(h), first=False,
+                                kernels=kernels)
             h = up(h)
             ult = self._torgb(self.blocks[depth - 1],
                               self._block(self.blocks[depth - 1], h,
-                                          first=False))
+                                          first=False, kernels=kernels))
             if fade:
                 prev_rgb = self._torgb(prev_p, h)
         ult = ult.float()  # images and the blend stay f32

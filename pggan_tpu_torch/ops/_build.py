@@ -48,7 +48,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("conv3x3.cu", "conv3x3_dw.cu", "conv_chain.cu", "upsample2x.cu",
-           "avgpool2x.cu")
+           "avgpool2x.cu", "wide_conv.cu")
 HEADERS = ("epilogue.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -71,6 +71,10 @@ _SIGNATURES = {
     # stream
     "pggan_conv3x3_chain": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _I, _I, _F, _F, _P),
+    # x, packed w, y, N, C, H, W, K, stream (NCHW)
+    "pggan_wide_conv": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, gy, ws, dw, N, C, H, W, K, slice_len, stream (NCHW)
+    "pggan_wide_conv_dw": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 # launches per kernel name; chip_smoke.py zeroes it around the main path

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pggan_tpu_torch.ops import wide_conv
 from pggan_tpu_torch.parallel.mesh import all_reduce_sum
 
 
@@ -214,14 +215,24 @@ def _epilogue(y, b, act, use_pixelnorm, eps, compute_dtype=None):
 def equalized_conv2d(params, x: torch.Tensor, *, padding: int = 1,
                      wscale: bool = True, act: str | None = "lrelu",
                      use_pixelnorm: bool = True, eps: float = 1e-8,
-                     compute_dtype=None) -> torch.Tensor:
+                     compute_dtype=None, kernels: bool = True) -> torch.Tensor:
     """The reference's ``PGConv2d`` forward (network.py:32-41), NCHW:
     conv(x * c) -> activation -> pixelnorm, with ``c`` folded into the
-    weight. ``params`` holds ``w`` (OIHW) and ``b``."""
+    weight. ``params`` holds ``w`` (OIHW) and ``b``. A float32 3x3
+    padding-1 conv on a CUDA tensor of the wide-channel shapes runs on the
+    kernel pair of ``ops/wide_conv.py`` (its ``route``); every other call,
+    and every call with ``kernels=False`` (the export), on ``F.conv2d``."""
     w = params["w"]
     if wscale:
         w = w * he_constant(w.shape[1] * w.shape[2] * w.shape[3])
-    y = _conv_in(compute_dtype, F.conv2d, x, w, padding=padding)
+    path = wide_conv.route(x.device.type, x.dtype, x.shape, w.shape, padding,
+                           compute_dtype, kernels)
+    if path == "kernel":
+        y = wide_conv.wide_conv(x, w.permute(0, 2, 3, 1))
+    else:
+        y = _conv_in(compute_dtype, F.conv2d, x, w, padding=padding)
+        if path == "cudnn":
+            wide_conv.count_library(x, w, y)
     return _epilogue(y, params["b"], act, use_pixelnorm, eps, compute_dtype)
 
 
