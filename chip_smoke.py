@@ -4375,6 +4375,180 @@ def wide_conv_phase(torch) -> dict:
     return {"shapes": rows, "sums": sums, "replay": wide_conv_replay(torch)}
 
 
+# -- StyleGAN's epilogue and blur (phase S) ------------------------------------
+# the train.style1024.d8-fade cell: StyleGAN at the CelebA-HQ widths, a
+# depth-8 fade step at batch 4
+STYLE_SHAPE, STYLE_DEPTH, STYLE_BATCH = (1, 3, 1024, 1024), 8, 4
+# the kernels' float32 against the plain twin's float64, over the largest
+# element of each output (the sums of d strength and d bias run over 4M
+# elements in float32 partials)
+STYLE_TOL = 1e-4
+
+
+def style_calls(torch) -> list:
+    """Each synthesis layer's epilogue call of the cell's step: (layer, N,
+    C, res, layout). A step runs each layer's forward twice (the fakes for
+    D, G's forward for its loss) and its backward once."""
+    from pggan_tpu_torch.models.style import StyleGenerator
+    G = StyleGenerator(STYLE_SHAPE, device="meta")
+    tail = G._tail_start(STYLE_DEPTH)
+    out = []
+    for i in range(2 * (STYLE_DEPTH + 1)):
+        k = i // 2
+        layout = "nhcw" if tail is not None and k >= tail else "nchw"
+        out.append((i, STYLE_BATCH, G.layer_channels(i), 4 * 2 ** k, layout))
+    return out
+
+
+def style_kink(torch, x, noise, st, b, sty, layout):
+    """The elements whose pre-activation ``x + st noise + b`` lies within
+    float32 rounding of 0 (float64 inputs)."""
+    from pggan_tpu_torch.ops import style
+    _xc, y0, _a = style._parts(x, noise, st, b, layout)
+    kink = y0.abs() <= 1e-6 * y0.abs().amax(dim=(2, 3), keepdim=True)
+    return kink if layout == "nchw" else kink.permute(0, 2, 1, 3)
+
+
+def graph_ms(torch, fn, reps: int = 20) -> float:
+    """Device ms of one call of ``fn`` as a replayed step runs it: ``fn``
+    captured into a CUDA graph, then ``reps`` replays back to back between
+    two events (no host launch cost, as in the train step's graph)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
+def style_phase(torch, device="cuda", timer=None) -> dict:
+    """Phase S: the epilogue kernel (``ops/style.py`` ``adain``, forward and
+    backward) at every layer's call of the StyleGAN cell against its plain
+    twin in float64 (``STYLE_TOL``; an element on the activation's kink
+    takes the kernel's slope, ``style_kink``), two calls bit for bit, and
+    timed as graph replays (``graph_ms``) beside the plain torch epilogue
+    in float32 (its forward, and its autograd backward); the blur at its
+    shapes likewise (bit for bit against the twin in float32). Per step:
+    two forwards and a backward a layer."""
+    from pggan_tpu_torch.ops import style
+    timer = timer or graph_ms
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    rows, blur_rows = [], []
+    sums = {"kernel_ms": 0.0, "plain_ms": 0.0, "blur_ms": 0.0,
+            "blur_plain_ms": 0.0, "bound_ms": 0.0}
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    for layer, n, c, res, layout in style_calls(torch):
+        shape = (n, c, res, res) if layout == "nchw" else (n, res, c, res)
+        x, g = rand(*shape), rand(*shape)
+        noise = rand(n, 1, res, res)
+        st, b, sty = rand(c) * 0.5, rand(c) * 0.5, rand(n, 2 * c)
+        xr = x.clone().requires_grad_(True)
+        args = (st.clone().requires_grad_(True), b.clone().requires_grad_(True),
+                sty.clone().requires_grad_(True))
+        y = style.adain(xr, noise, *args, layout)
+        got = torch.autograd.grad(y, (xr, *args), g)
+        y = y.detach()
+        d = [t.double() for t in (x, noise, st, b, sty)]
+        want_y = style.adain_plain(*d, layout)
+        want = list(style.adain_backward_plain(*d, g.double(), layout))
+        # an element whose pre-activation lies within float32 rounding of
+        # 0 may take either slope: its dx is the kernel's, in d strength
+        # and d bias too (both sides agree off the kink)
+        kink = style_kink(torch, *d, layout)
+        dx = torch.where(kink, got[0].double(), want[0])
+        nz = noise.double().reshape(n, res, 1, res) if layout == "nhcw" \
+            else noise.double()
+        dims = (0, 1, 3) if layout == "nhcw" else (0, 2, 3)
+        want[:3] = dx, (dx * nz).sum(dim=dims), dx.sum(dim=dims)
+        errs = [float((y.double() - want_y).abs().max()
+                      / want_y.abs().max())]
+        errs += [float((a.double() - w).abs().max() / w.abs().max())
+                 for a, w in zip(got, want)]
+        y2 = style.adain(xr, noise, *args, layout)
+        again = torch.autograd.grad(y2, (xr, *args), g)
+        y2 = y2.detach()
+        repeat = torch.equal(y, y2) and all(
+            torch.equal(a, b2) for a, b2 in zip(got, again))
+        del y, y2, got, again, want, want_y, d, dx, kink
+
+        def fwd(x=x, noise=noise, st=st, b=b, sty=sty, layout=layout):
+            return style.adain(x, noise, st, b, sty, layout)
+
+        def fwd_bwd(xr=xr, noise=noise, args=args, g=g, layout=layout):
+            return torch.autograd.grad(style.adain(xr, noise, *args, layout),
+                                       (xr, *args), g)
+
+        def plain(x=x, noise=noise, st=st, b=b, sty=sty, layout=layout):
+            return style.adain_plain(x, noise, st, b, sty, layout)
+
+        def plain_bwd(xr=xr, noise=noise, args=args, g=g, layout=layout):
+            return torch.autograd.grad(
+                style.adain_plain(xr, noise, *args, layout), (xr, *args), g)
+
+        ms = {k: timer(torch, f) for k, f in (
+            ("fwd", fwd), ("fwd_bwd", fwd_bwd), ("plain", plain),
+            ("plain_bwd", plain_bwd))}
+        step_ms = ms["fwd"] + ms["fwd_bwd"]
+        plain_ms = ms["plain"] + ms["plain_bwd"]
+        elems = n * c * res * res
+        # least bytes a step: two forwards (x, noise in, y out) and a
+        # backward (x, noise, g in, dx out), in float32
+        bound_ms = 4 * (2 * (2 * elems + n * res * res)
+                        + 3 * elems + n * res * res) / 3.35e12 * 1e3
+        row = {"layer": layer, "n": n, "c": c, "res": res, "layout": layout,
+               "errs": errs, "repeat_bitwise": repeat, **ms,
+               "step_ms": step_ms, "plain_step_ms": plain_ms,
+               "bound_ms": bound_ms, "speedup": plain_ms / step_ms}
+        rows.append(row)
+        for k, v in (("kernel_ms", step_ms), ("plain_ms", plain_ms),
+                     ("bound_ms", bound_ms)):
+            sums[k] += v
+        log(f"  layer {layer} ({layout}, N {n}, C {c}, {res} px): errs "
+            + ", ".join(f"{e:.1e}" for e in errs)
+            + f"; a step {step_ms:.4f} ms (bound {bound_ms:.4f}) against "
+            f"plain torch {plain_ms:.4f} ms: {plain_ms / step_ms:.2f}x")
+        if max(errs) > STYLE_TOL or not repeat:
+            raise AssertionError(f"adain layer {layer}: errs {errs}, repeat "
+                                 f"{repeat}")
+        if layer % 2 == 0 and layer > 0:  # after an up-conv: the blur
+            yb = style.blur(x, layout)
+            exact = torch.equal(yb, style.blur_plain(x, layout))
+            bms = timer(torch, lambda x=x, layout=layout:
+                        style.blur(x, layout))
+            pms = timer(torch, lambda x=x, layout=layout:
+                        style.blur_plain(x, layout))
+            blur_rows.append({"layer": layer, "layout": layout,
+                              "shape": list(shape), "bitwise": exact,
+                              "ms": bms, "plain_ms": pms})
+            sums["blur_ms"] += bms
+            sums["blur_plain_ms"] += pms
+            log(f"    blur {list(shape)}: bit for bit {exact}, {bms:.4f} ms "
+                f"against plain {pms:.4f} ms")
+            if not exact:
+                raise AssertionError(f"blur layer {layer} parts from its "
+                                     "twin")
+        del x, g, xr, noise
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    log(f"  a step's epilogues: {sums['kernel_ms']:.3f} ms (bound "
+        f"{sums['bound_ms']:.3f} ms, {sums['bound_ms'] / sums['kernel_ms']:.1%}"
+        f") against plain torch {sums['plain_ms']:.3f} ms; blur forwards "
+        f"{sums['blur_ms']:.3f} ms against {sums['blur_plain_ms']:.3f} ms")
+    return {"epilogue": rows, "blur": blur_rows, "sums": sums}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4427,6 +4601,12 @@ def main() -> int:
         f"on {card}")
     wide = wide_conv_phase(torch)
     log(f"phase W passed ({time.perf_counter() - t_start:.0f} s so far)")
+
+    # phase S: StyleGAN's epilogue and blur
+    log("phase S: the StyleGAN epilogue and blur at every call of the "
+        "StyleGAN cell's step")
+    style_result = style_phase(torch)
+    log(f"phase S passed ({time.perf_counter() - t_start:.0f} s so far)")
 
     # phase 4: the slice, through the CLI
     log("phase 4: serve a random paper-config snapshot (depth 8, 1024 px)")
@@ -4682,6 +4862,7 @@ def main() -> int:
     print(json.dumps({"precompile": {**precompile, "card": card_line}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"wide_conv": {**wide, "card": card_line}}))
+    print(json.dumps({"style": {**style_result, "card": card_line}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -4691,7 +4872,7 @@ def main() -> int:
 def worker(argv) -> int:
     """A process that a phase starts: ``--gloo-rank WORK`` (phase B)
     or ``--cli-rank OUT SAVED ARGV...`` (phase C, under torchrun); or
-    ``--wide-conv``, phase W alone."""
+    ``--wide-conv``, phase W alone; or ``--style``, phase S alone."""
     if argv[0] == "--gloo-rank":
         return gloo_rank(argv[1])
     if argv[0] == "--cli-rank":
@@ -4703,6 +4884,14 @@ def worker(argv) -> int:
         _build.library()
         disable_tf32()
         print(json.dumps({"wide_conv": wide_conv_phase(torch)}))
+        return 0
+    if argv[0] == "--style":  # phase S alone
+        import torch
+        from pggan_tpu_torch.ops import _build
+        from pggan_tpu_torch.sampling import disable_tf32
+        _build.library()
+        disable_tf32()
+        print(json.dumps({"style": style_phase(torch)}))
         return 0
     raise SystemExit(f"chip_smoke.py takes no arguments, got {argv}")
 

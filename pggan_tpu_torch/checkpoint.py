@@ -10,12 +10,20 @@ to the port's OIHW tensors and back, exactly; ``d_params_from_jax`` and
 ``d_params_to_jax`` do the same for the Discriminator. File names follow the
 reference layout ``network-snapshot-{generator|discriminator}-{kimg:06}.dat``.
 
+A StyleGAN generator (``models/style.py``) has no JAX counterpart: its
+snapshot (``model_class`` "StyleGenerator") holds its parameters and its
+buffer ``w_avg`` as a flat dict of numpy arrays keyed by name, OIHW, and
+a Discriminator with StyleGAN's options holds them in its config
+(``discriminator.STYLE_FIELDS``, only where they differ from PGGAN's).
+
 A training state (``training-state-{kimg:06}.dat``) holds what an exact
 resume needs beyond the snapshots (``pggan_tpu/checkpoint.py:125-146``):
 G's and D's parameters, both Adam states (``mu``, ``nu``, ``count``), the
 G EMA, the state's ``torch.Generator`` state, and the trainer's clock. It is
 the port's own pickle of plain dicts of numpy arrays keyed by parameter
-name, with no torch class inside: ``framework: "pggan_tpu_torch"``. A
+name, with no torch class inside: ``framework: "pggan_tpu_torch"``. A G
+with buffers (StyleGAN's ``w_avg``) adds them as ``G_buffers`` (and the
+EMA's as ``g_ema_buffers``). A
 data-parallel run's state also holds every rank's generator state
 (``rank_generators``), so that each rank resumes its own latent stream;
 rank 0 writes it, every rank reads it.
@@ -40,9 +48,10 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from pggan_tpu_torch.models import discriminator, generator
+from pggan_tpu_torch.models import discriminator, generator, style
 from pggan_tpu_torch.models.discriminator import Discriminator
 from pggan_tpu_torch.models.generator import Generator
+from pggan_tpu_torch.models.style import StyleGenerator
 
 _LAYERS = ("c1", "c2", "torgb")
 _D_LAYERS = ("fromrgb", "c1", "c2")
@@ -115,20 +124,40 @@ def d_params_to_jax(D: Discriminator) -> dict:
                 "b": D.linear["b"].detach().cpu().numpy().copy()}}
 
 
+def flat_to_numpy(model) -> dict:
+    """A model's parameters and buffers as numpy arrays keyed by name."""
+    return {k: v.detach().cpu().numpy().copy()
+            for k, v in model.state_dict().items()}
+
+
+def flat_from_numpy(tree) -> dict:
+    return {k: torch.from_numpy(np.array(v)) for k, v in tree.items()}
+
+
 # model class -> (its module's constructor fields, params to and from the
-# JAX tree)
+# snapshot's tree: the JAX package's, or a flat one)
 _MODELS = {
     "Generator": (Generator, generator.CONFIG_FIELDS, params_to_jax,
                   params_from_jax),
     "Discriminator": (Discriminator, discriminator.CONFIG_FIELDS,
                       d_params_to_jax, d_params_from_jax),
+    "StyleGenerator": (StyleGenerator, style.CONFIG_FIELDS, flat_to_numpy,
+                       flat_from_numpy),
 }
+SERVED = ("Generator", "StyleGenerator")
 
 
 def model_config(model) -> dict:
-    """Constructor kwargs for rebuilding a Generator or Discriminator, with
-    ``latent_size`` resolved (the JAX package's ``model_config``)."""
-    return {f: getattr(model, f) for f in _MODELS[type(model).__name__][1]}
+    """Constructor kwargs for rebuilding a model, with ``latent_size``
+    resolved (the JAX package's ``model_config``); a Discriminator's
+    StyleGAN options where they differ from PGGAN's."""
+    config = {f: getattr(model, f)
+              for f in _MODELS[type(model).__name__][1]}
+    if isinstance(model, Discriminator):
+        config.update({f: getattr(model, f) for f, v in
+                       discriminator.STYLE_FIELDS.items()
+                       if getattr(model, f) != v})
+    return config
 
 
 def save_snapshot(path: str, model, depth: int, alpha: float) -> None:
@@ -164,9 +193,9 @@ def load_snapshot(path: str, device=None):
     model; other snapshots raise."""
     with open(path, "rb") as f:
         model_class = pickle.load(f)["model_class"]
-    if model_class != "Generator":
+    if model_class not in SERVED:
         raise ValueError(f"{path}: a {model_class} snapshot; serving loads "
-                         "Generator snapshots only")
+                         "Generator snapshots only (PGGAN's or StyleGAN's)")
     return load_model_snapshot(path, device)
 
 
@@ -217,6 +246,11 @@ def _numpy(module) -> dict:
             for k, v in module.named_parameters()}
 
 
+def _buffers(module) -> dict:
+    return {k: v.detach().cpu().numpy().copy()
+            for k, v in module.named_buffers()}
+
+
 def _adam(opt, module) -> dict:
     names = [k for k, _ in module.named_parameters()]
     return {"mu": {k: t.cpu().numpy().copy() for k, t in zip(names, opt.mu)},
@@ -238,6 +272,10 @@ def training_state_dict(state, rank_generators=None) -> dict:
     }
     if rank_generators is not None:
         sd["rank_generators"] = [g.numpy().copy() for g in rank_generators]
+    if _buffers(state.G):
+        sd["G_buffers"] = _buffers(state.G)
+        if state.g_ema is not None:
+            sd["g_ema_buffers"] = _buffers(state.g_ema)
     return sd
 
 
@@ -261,8 +299,16 @@ def restore_training_state(state, sd: dict, group=None) -> None:
             nu.copy_(torch.from_numpy(d["nu"][name]))
         opt.count.fill_(int(d["count"]))
 
+    def load_buffers(module, arrays):
+        for k, b in module.named_buffers():
+            b.copy_(torch.from_numpy(arrays[k]))
+
     load(state.G, sd["G"])
     load(state.D, sd["D"])
+    if sd.get("G_buffers") is not None:
+        load_buffers(state.G, sd["G_buffers"])
+    if state.g_ema is not None and sd.get("g_ema_buffers") is not None:
+        load_buffers(state.g_ema, sd["g_ema_buffers"])
     load_opt(state.g_opt, state.G, sd["g_opt"])
     load_opt(state.d_opt, state.D, sd["d_opt"])
     if state.g_ema is not None and sd.get("g_ema") is not None:

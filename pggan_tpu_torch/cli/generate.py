@@ -10,7 +10,9 @@ The flags are those of ``pggan_tpu/cli/generate.py`` plus ``--device``
 (default ``cuda``), which never falls back to the CPU: without a card the
 default raises. ``--device`` also sets a postprocessor's ``device`` (the
 SoundSaver's Griffin-Lim) unless ``--SoundSaver.device`` is given.
-Snapshots from either package load.
+Snapshots from either package load, and the port's StyleGAN snapshots;
+``--truncation_psi`` sets a StyleGAN generator's truncation (0.7 on
+layers 0-7 by default, the snapshot's own; 1 turns it off).
 """
 
 from __future__ import annotations
@@ -43,6 +45,11 @@ default_params = {
     "inference_chain": True,  # fused conv-pair kernel in the tail
     "device": "cuda",
 }
+# the port's flags beyond the JAX CLI's (whose defaults default_params
+# keeps)
+port_params = {
+    "truncation_psi": -1.0,  # StyleGAN only; < 0: the snapshot's own (0.7)
+}
 
 
 def resolve_device(name: str) -> torch.device:
@@ -57,17 +64,20 @@ def resolve_device(name: str) -> torch.device:
 
 def output_samples(generator_path, num_samples, postprocessors, description,
                    random_seed=0, result_dir="results", minibatch=0,
-                   inference_chain=True, device="cuda"):
+                   inference_chain=True, device="cuda", truncation_psi=None):
     device = resolve_device(device)
     generator_path = resolve_generator_path(generator_path, result_dir)
     print(f"Loading {generator_path}")
     G, meta = load_snapshot(generator_path, device=device)
+    if truncation_psi is not None and truncation_psi < 0:
+        truncation_psi = None
     if inference_chain:
         G.inference_chain = True  # serving-only fused conv pairs
     print(f"Generating ({device}, minibatch {minibatch or num_samples})...")
     rng = np.random.RandomState(random_seed)
     out = sample_images(G, meta["depth"], meta["alpha"], num_samples,
-                        minibatch=minibatch, rng=rng)
+                        minibatch=minibatch, rng=rng,
+                        truncation_psi=truncation_psi)
     out = out.transpose(0, 3, 1, 2)  # -> NCHW for the postprocessors
     print("Done.")
     for proc in postprocessors:
@@ -79,11 +89,10 @@ def output_samples(generator_path, num_samples, postprocessors, description,
 
 def cli_main(argv=None):
     parser = ArgumentParser(description=__doc__)
-    flat_defaults = dict(default_params)
-    for k in default_params:
+    flat_defaults = {**default_params, **port_params}
+    for k, v in flat_defaults.items():
         parser.add_argument(
-            f"--{k}",
-            type=partial(generic_arg_parse, hinttype=type(default_params[k])))
+            f"--{k}", type=partial(generic_arg_parse, hinttype=type(v)))
     add_class_args(parser, get_all_classes(postprocess_module),
                    default_params=flat_defaults)
     parser.set_defaults(**flat_defaults)
@@ -97,7 +106,7 @@ def cli_main(argv=None):
                           postprocessors, params["description"],
                           params["random_seed"], params["result_dir"],
                           params["minibatch"], params["inference_chain"],
-                          params["device"])
+                          params["device"], params["truncation_psi"])
 
 
 if __name__ == "__main__":

@@ -38,6 +38,13 @@ directory (log, metrics, samples, checkpoints). ``--num_devices``, when
 set, must equal the world size. ``--data_parallel False`` refuses a launch
 of several ranks.
 
+``--architecture stylegan`` trains StyleGAN (``models/style.py``; its
+fields as ``--StyleGenerator.*``, the CelebA-HQ widths by default) against
+the Discriminator with StyleGAN's options (``--Discriminator.blur``,
+``.mbstd_group_size``, ``.equalized_dense`` and ``.fmap_base`` default to
+True, 4, True and 8192 there, unless set); ``pggan`` (the default) trains
+PGGAN's ``Generator`` (``--Generator.*``).
+
 ``--debug_nans`` turns on autograd's anomaly detection.
 ``--DepthManager.precompile_ahead True`` (off by default, as in the JAX
 CLI) makes the steps a stage needs next ready in a background thread: a
@@ -68,6 +75,7 @@ from pggan_tpu_torch.checkpoint import (
 from pggan_tpu_torch.cli.generate import resolve_device
 from pggan_tpu_torch.data.loader import DataIterator
 from pggan_tpu_torch.models import Discriminator, Generator
+from pggan_tpu_torch.models.style import StyleGenerator
 from pggan_tpu_torch.parallel import (
     check_batch_divisible,
     fit_minibatch_to_mesh,
@@ -153,6 +161,14 @@ default_params = OrderedDict(
     scale_lr_with_batch=False,  # scale the lr with a rounded-up batch
     device="cuda",
 )
+# the port's flags beyond the JAX CLI's (whose defaults default_params
+# keeps)
+port_params = OrderedDict(
+    architecture="pggan",  # or "stylegan": StyleGenerator + StyleGAN's D
+)
+# the Discriminator's fields that --architecture stylegan sets, unless given
+STYLE_D_DEFAULTS = {"blur": True, "mbstd_group_size": 4,
+                    "equalized_dense": True, "fmap_base": 8192}
 
 LOSSES = ["G_loss", "D_loss", "D_real", "D_fake"]
 
@@ -301,6 +317,26 @@ def _register_outputs(trainer, params, result_dir, latent_size) -> None:
         trainer.register_plugin(TraceProfiler(params["profile_dir"]))
 
 
+def _models(params, shape, seed):
+    """A fresh G and D of ``--architecture``."""
+    d_cfg = dict(params.get("Discriminator", {}))
+    architecture = params.get("architecture", "pggan")
+    if architecture == "stylegan":
+        for key, value in STYLE_D_DEFAULTS.items():
+            alias_default(d_cfg, key, Discriminator, value)
+        G = StyleGenerator(shape, **params.get("StyleGenerator", {}),
+                           generator=torch.Generator().manual_seed(seed))
+    elif architecture == "pggan":
+        G = Generator(shape, **params.get("Generator", {}),
+                      generator=torch.Generator().manual_seed(seed))
+    else:
+        raise SystemExit(f"--architecture {architecture!r}: "
+                         "pggan or stylegan")
+    D = Discriminator(shape, **d_cfg,
+                      generator=torch.Generator().manual_seed(seed + 1))
+    return G, D
+
+
 def build(params):
     """Everything ``main`` runs, up to the first step: returns
     ``(trainer, logger, total_kimg)`` with the plugins registered and, on a
@@ -356,10 +392,7 @@ def build(params):
                 load_training_state(state_path)
             logger.log(f"Restored full training state from {state_path}")
     else:
-        G = Generator(dataset.shape, **params.get("Generator", {}),
-                      generator=torch.Generator().manual_seed(seed))
-        D = Discriminator(dataset.shape, **params.get("Discriminator", {}),
-                          generator=torch.Generator().manual_seed(seed + 1))
+        G, D = _models(params, dataset.shape, seed)
         G, D = G.to(device), D.to(device)
     if params["progressive_growing"] and G.max_depth != D.max_depth:
         raise ValueError(f"G max_depth {G.max_depth} != D {D.max_depth}")
@@ -498,20 +531,20 @@ def main(params):
 
 def build_parser() -> ArgumentParser:
     parser = ArgumentParser(description=__doc__)
-    needarg_classes = [Trainer, Generator, Discriminator, DepthManager,
-                       SaverPlugin, OutputGenerator, Adam]
+    needarg_classes = [Trainer, Generator, StyleGenerator, Discriminator,
+                       DepthManager, SaverPlugin, OutputGenerator, Adam]
     needarg_classes += get_all_classes(dataset_module)
     needarg_classes += get_all_classes(postprocess_module)
     excludes = {
         "Generator": {"device", "generator"},
+        "StyleGenerator": {"device", "generator"},
         "Discriminator": {"device", "generator"},
         "DepthManager": {"create_dataiter_fun", "create_rlg", "max_depth"},
     }
-    flat_defaults = dict(default_params)
-    for k in default_params:
+    flat_defaults = {**default_params, **port_params}
+    for k, v in flat_defaults.items():
         parser.add_argument(
-            f"--{k}",
-            type=partial(generic_arg_parse, hinttype=type(default_params[k])))
+            f"--{k}", type=partial(generic_arg_parse, hinttype=type(v)))
     add_class_args(parser, needarg_classes, excludes=excludes,
                    default_params=flat_defaults)
     parser.set_defaults(**flat_defaults)

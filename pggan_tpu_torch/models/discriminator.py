@@ -19,6 +19,18 @@ means "the NHCW head on the hand-written kernels". ``compute_dtype=
 package does (``pggan_tpu/models/discriminator.py:142``): its NCHW pools
 run the bf16 pool kernel, the fade blend and the final dense layer float32.
 
+StyleGAN's discriminator (NVlabs/stylegan ``networks_stylegan.py``
+``D_basic``) is three options: ``blur`` (each block's down-conv is blur ->
+3x3 conv -> 2x2 pool -> bias -> leaky ReLU, where PGGAN's is conv -> bias
+-> leaky ReLU -> pool), ``mbstd_group_size`` (the minibatch stddev over
+groups of that many samples, ``ops/primitives.py``
+``minibatch_stddev_group``; 0 keeps PGGAN's whole-batch scalar) and
+``equalized_dense`` (the last dense layer equalized with gain 1). The 4 px
+block is the same either way: its 4x4 valid conv is StyleGAN's Dense0
+(8192 -> 512 over the flattened NCHW features). A snapshot's config holds
+the three only where they differ from PGGAN's (``STYLE_FIELDS``), so that
+a PGGAN snapshot stays the JAX package's.
+
 Under data parallelism D carries its process group in ``group`` (a
 ``parallel.Group``, set by the train step's builder; None otherwise), as the
 JAX D carries its ``mesh``: the minibatch-stddev statistic is then the
@@ -33,16 +45,21 @@ import torch
 from torch import nn
 
 from pggan_tpu_torch.models.generator import compute_torch_dtype
-from pggan_tpu_torch.ops import spatial
+from pggan_tpu_torch.ops import spatial, style
+from pggan_tpu_torch.ops.conv3x3 import conv3x3
 from pggan_tpu_torch.ops.primitives import (
     avg_pool_2x,
     conv_init,
     dense_init,
+    equalized_conv,
     equalized_conv2d,
     equalized_conv2d_pool_in,
     equalized_dense,
     f32_scalar,
+    he_constant,
+    leaky_relu,
     minibatch_stddev,
+    minibatch_stddev_group,
     nf,
 )
 
@@ -50,6 +67,10 @@ from pggan_tpu_torch.ops.primitives import (
 CONFIG_FIELDS = ("dataset_shape", "fmap_base", "fmap_decay", "fmap_max",
                  "wscale", "pixelnorm", "leakyrelu", "compute_dtype",
                  "fused_scale", "pallas_tail")
+# StyleGAN's options and their PGGAN values; a snapshot's config holds one
+# only where it differs
+STYLE_FIELDS = {"blur": False, "mbstd_group_size": 0,
+                "equalized_dense": False}
 
 
 def _layer(generator, ksize, ch_in, ch_out, wscale, device) -> nn.ParameterDict:
@@ -64,10 +85,16 @@ class Discriminator(nn.Module):
                  fmap_decay: float = 1.0, fmap_max: int = 512,
                  wscale: bool = True, pixelnorm: bool = False,
                  leakyrelu: bool = True, compute_dtype: str = "float32",
-                 fused_scale: bool = True, pallas_tail: bool = True, *,
+                 fused_scale: bool = True, pallas_tail: bool = True,
+                 blur: bool = False, mbstd_group_size: int = 0,
+                 equalized_dense: bool = False, *,
                  device=None, generator: torch.Generator | None = None):
         super().__init__()
         self._compute = compute_torch_dtype(compute_dtype)
+        self.blur, self.mbstd_group_size = bool(blur), int(mbstd_group_size)
+        self.equalized_dense = bool(equalized_dense)
+        if self.blur and self._compute is not None:
+            raise ValueError("StyleGAN's blur runs in float32 only")
         self.dataset_shape = tuple(int(d) for d in dataset_shape)
         self.fmap_base, self.fmap_decay, self.fmap_max = (
             fmap_base, fmap_decay, fmap_max)
@@ -121,15 +148,28 @@ class Discriminator(nn.Module):
         return self._conv(p["fromrgb"], x, pad=0, use_pixelnorm=False)
 
     def _block(self, p, h, is_last: bool, first: bool, stat_groups: int):
+        """One block; a block above 4 px ends pooled."""
         if first:
             h = self._fromrgb(p, h)
         if is_last:
-            h = minibatch_stddev(h, groups=stat_groups,
-                                 group=self.group)  # network.py:168
+            if self.mbstd_group_size:
+                h = minibatch_stddev_group(h, self.mbstd_group_size,
+                                           self.eps, stat_groups)
+            else:
+                h = minibatch_stddev(h, groups=stat_groups,
+                                     group=self.group)  # network.py:168
             h = self._conv(p["c1"], h, pad=1)
             return self._conv(p["c2"], h, pad=0)  # 4x4 valid -> 1x1
         h = self._conv(p["c1"], h, pad=1)
-        return self._conv(p["c2"], h, pad=1)
+        if self.blur:  # blur -> conv -> pool -> bias -> act
+            y = avg_pool_2x(equalized_conv(p["c2"]["w"], style.blur(h),
+                                           wscale=self.wscale))
+            return self._bias_act(y + p["c2"]["b"][None, :, None, None])
+        return avg_pool_2x(self._conv(p["c2"], h, pad=1))
+
+    def _bias_act(self, y):
+        return (leaky_relu(y, 0.2) if self.act == "lrelu"
+                else torch.clamp_min(y, 0.0))
 
     # -- the NHCW head -------------------------------------------------------------
     def _pallas_span(self, depth: int) -> int:
@@ -165,16 +205,22 @@ class Discriminator(nn.Module):
                                          use_pixelnorm=self.pixelnorm,
                                          eps=self.eps)
 
+        def down(v, pp):
+            if not self.blur:
+                return spatial.avg_pool_2x(conv3(v, pp))
+            y = spatial.avg_pool_2x(conv3x3(style.blur(v, "nhcw"),
+                                            spatial._hwio(pp, self.wscale)))
+            return self._bias_act(y + pp["b"][None, None, :, None])
+
         x = x_nhwc.permute(0, 1, 3, 2).contiguous()  # -> NHCW
         p = blocks[n - (depth + 1)]
-        h = conv3(conv3(conv1x1(x, p["fromrgb"]), p["c1"]), p["c2"])
-        h = spatial.avg_pool_2x(h)
+        h = down(conv3(conv1x1(x, p["fromrgb"]), p["c1"]), p["c2"])
         if fade:
             prev = conv1x1(spatial.avg_pool_2x(x), blocks[n - depth]["fromrgb"])
             h = h * alpha + (1.0 - alpha) * prev
         for i in range(depth, depth - span + 1, -1):
             p = blocks[n - i]
-            h = spatial.avg_pool_2x(conv3(conv3(h, p["c1"]), p["c2"]))
+            h = down(conv3(h, p["c1"]), p["c2"])
         return h.permute(0, 2, 1, 3).contiguous()  # NHCW -> NCHW
 
     def forward(self, x: torch.Tensor, depth: int, alpha,
@@ -188,7 +234,8 @@ class Discriminator(nn.Module):
             raise ValueError(f"depth {depth} out of range "
                              f"[0, {self.max_depth}]")
         blocks, n = self.blocks, len(self.blocks)
-        x = x.to(torch.float32)
+        dtype = torch.float64 if x.dtype == torch.float64 else torch.float32
+        x = x.to(dtype)  # float64 stays, for the CPU tests' references
         alpha = f32_scalar(alpha, x.device)
         span = self._pallas_span(depth)
         if span > 0:
@@ -200,8 +247,6 @@ class Discriminator(nn.Module):
             x = x.permute(0, 3, 1, 2).contiguous()
             h = self._block(blocks[n - (depth + 1)], x, is_last=(depth == 0),
                             first=True, stat_groups=stat_groups)
-            if depth > 0:
-                h = avg_pool_2x(h)
             if depth > 0 and fade:
                 # fade-in blend with the next block's fromRGB of the pooled
                 # input (network.py:230-233)
@@ -215,12 +260,13 @@ class Discriminator(nn.Module):
                     prev = self._fromrgb(p, avg_pool_2x(x))
                 # in f32, as JAX's bf16 times its f32 alpha promotes
                 # (torch would keep bf16 against a 0-d f32 tensor)
-                h = h.float() * alpha + (1.0 - alpha) * prev.float()
+                h = h.to(dtype) * alpha + (1.0 - alpha) * prev.to(dtype)
             start = depth
         for i in range(start, 0, -1):
             h = self._block(blocks[n - i], h, is_last=(i == 1), first=False,
                             stat_groups=stat_groups)
-            if i > 1:
-                h = avg_pool_2x(h)
-        return equalized_dense(self.linear,
-                               h.reshape(h.shape[0], -1).to(torch.float32))
+        h = h.reshape(h.shape[0], -1).to(dtype)
+        if self.equalized_dense:  # StyleGAN's Dense1: gain 1
+            w = self.linear["w"] * he_constant(self.linear["w"].shape[1], 1.0)
+            return torch.nn.functional.linear(h, w, self.linear["b"])
+        return equalized_dense(self.linear, h)

@@ -48,12 +48,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("conv3x3.cu", "conv3x3_dw.cu", "conv_chain.cu", "upsample2x.cu",
-           "avgpool2x.cu", "wide_conv.cu")
+           "avgpool2x.cu", "wide_conv.cu", "style.cu")
 HEADERS = ("epilogue.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # x, y, N, H, C, W, stream (f32, and the bf16 twins)
     "pggan_upsample2x": (_P, _P, _I, _I, _I, _I, _P),
@@ -75,6 +76,16 @@ _SIGNATURES = {
     "pggan_wide_conv": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, gy, ws, dw, N, C, H, W, K, slice_len, stream (NCHW)
     "pggan_wide_conv_dw": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, noise, strength, bias, style, y, stats, part, N, C, H, W, sN, sC,
+    # sH, S, slope, eps, stream (StyleGAN's epilogue, any plane layout)
+    "pggan_style_adain": (_P,) * 8 + (_I,) * 4 + (_L,) * 3 + (_I, _F, _F,
+                                                              _P),
+    # x, noise, strength, bias, style, stats, g, dx, dstyle, dsb, part, N,
+    # C, H, W, sN, sC, sH, S, slope, stream
+    "pggan_style_adain_bwd": (_P,) * 11 + (_I,) * 4 + (_L,) * 3 + (_I, _F,
+                                                                   _P),
+    # x, y, N, C, H, W, sN, sC, sH, stream
+    "pggan_style_blur": (_P, _P) + (_I,) * 4 + (_L,) * 3 + (_P,),
 }
 
 # launches per kernel name; chip_smoke.py zeroes it around the main path

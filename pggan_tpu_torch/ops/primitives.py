@@ -117,6 +117,32 @@ def minibatch_stddev(x: torch.Tensor, eps: float = 1e-8,
     return torch.cat([x, tile], dim=1)
 
 
+def minibatch_stddev_group(x: torch.Tensor, group_size: int = 4,
+                           eps: float = 1e-8,
+                           stat_groups: int = 1) -> torch.Tensor:
+    """StyleGAN's minibatch stddev (NVlabs/stylegan ``networks_stylegan.py``
+    minibatch_stddev_layer, one feature): the batch is cut into groups of
+    ``group_size``, sample i in group ``i % (N / group_size)``; each
+    element's std over its group, ``sqrt(mean((x - mean)^2) + eps)``,
+    averaged over C, H and W, is appended as one channel (NCHW dim 1).
+    ``stat_groups`` applies it to that many equal batch slices apart, as
+    separate calls would."""
+    n, c, h, w = x.shape
+    if n % stat_groups:
+        raise ValueError(f"batch {n} does not split into {stat_groups} "
+                         "slices")
+    m = n // stat_groups
+    g = min(group_size, m)
+    if m % g:
+        raise ValueError(f"a slice of {m} samples does not split into "
+                         f"groups of {g}")
+    y = x.reshape(stat_groups, g, m // g, c, h, w)
+    y = y - y.mean(dim=1, keepdim=True)
+    y = torch.sqrt(y.square().mean(dim=1) + eps).mean(dim=(2, 3, 4))
+    tile = y.repeat(1, g).reshape(n, 1, 1, 1).expand(n, 1, h, w)
+    return torch.cat([x, tile.to(x.dtype)], dim=1)
+
+
 # The resample kernels take contiguous tensors. ``F.conv2d`` may return a
 # channels-last layout when its input's strides fit both layouts, as a
 # one-channel (N, 1, H, W) image's do; ``contiguous`` is free otherwise.
@@ -222,18 +248,27 @@ def equalized_conv2d(params, x: torch.Tensor, *, padding: int = 1,
     padding-1 conv on a CUDA tensor of the wide-channel shapes runs on the
     kernel pair of ``ops/wide_conv.py`` (its ``route``); every other call,
     and every call with ``kernels=False`` (the export), on ``F.conv2d``."""
-    w = params["w"]
+    y = equalized_conv(params["w"], x, padding=padding, wscale=wscale,
+                       compute_dtype=compute_dtype, kernels=kernels)
+    return _epilogue(y, params["b"], act, use_pixelnorm, eps, compute_dtype)
+
+
+def equalized_conv(w: torch.Tensor, x: torch.Tensor, *, padding: int = 1,
+                   wscale: bool = True, gain: float = math.sqrt(2.0),
+                   compute_dtype=None, kernels: bool = True) -> torch.Tensor:
+    """The conv of ``equalized_conv2d`` alone, with no bias or epilogue:
+    ``w`` (OIHW) scaled by ``gain / sqrt(fan_in)`` with ``wscale``, on the
+    route ``equalized_conv2d`` takes."""
     if wscale:
-        w = w * he_constant(w.shape[1] * w.shape[2] * w.shape[3])
+        w = w * he_constant(w.shape[1] * w.shape[2] * w.shape[3], gain)
     path = wide_conv.route(x.device.type, x.dtype, x.shape, w.shape, padding,
                            compute_dtype, kernels)
     if path == "kernel":
-        y = wide_conv.wide_conv(x, w.permute(0, 2, 3, 1))
-    else:
-        y = _conv_in(compute_dtype, F.conv2d, x, w, padding=padding)
-        if path == "cudnn":
-            wide_conv.count_library(x, w, y)
-    return _epilogue(y, params["b"], act, use_pixelnorm, eps, compute_dtype)
+        return wide_conv.wide_conv(x, w.permute(0, 2, 3, 1))
+    y = _conv_in(compute_dtype, F.conv2d, x, w, padding=padding)
+    if path == "cudnn":
+        wide_conv.count_library(x, w, y)
+    return y
 
 
 def _superpose_up(w3: torch.Tensor) -> torch.Tensor:
@@ -260,14 +295,23 @@ def equalized_conv2d_up2x(params, x: torch.Tensor, *, wscale: bool = True,
     of stride 2 and padding 1 with the kernel flipped and in/out swapped,
     which is how ``F.conv_transpose2d`` takes it.
     """
-    w = params["w"]
+    y = equalized_conv_up2x(params["w"], x, wscale=wscale,
+                            compute_dtype=compute_dtype)
+    return _epilogue(y, params["b"], act, use_pixelnorm, eps, compute_dtype)
+
+
+def equalized_conv_up2x(w: torch.Tensor, x: torch.Tensor, *,
+                        wscale: bool = True, compute_dtype=None
+                        ) -> torch.Tensor:
+    """The conv of ``equalized_conv2d_up2x`` alone (no bias or epilogue):
+    a 3x3 conv over the nearest-2x-upsampled input as one transposed
+    conv."""
     assert w.shape[2:] == (3, 3), "up-fusion is for 3x3 convs"
     if wscale:
         w = w * he_constant(9 * w.shape[1])
     k = _superpose_up(w).flip(2, 3).transpose(0, 1)  # (C, K, 4, 4)
-    y = _conv_in(compute_dtype, F.conv_transpose2d, x, k, stride=2,
-                 padding=1)
-    return _epilogue(y, params["b"], act, use_pixelnorm, eps, compute_dtype)
+    return _conv_in(compute_dtype, F.conv_transpose2d, x, k, stride=2,
+                    padding=1)
 
 
 def equalized_conv2d_pool_in(params, x: torch.Tensor, *, wscale: bool = True,

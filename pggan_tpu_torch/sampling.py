@@ -50,7 +50,7 @@ def _device(d) -> torch.device:
 
 
 def sample_images(G, depth, alpha, num_samples, *, minibatch=0, rng=None,
-                  devices=None):
+                  devices=None, truncation_psi=None):
     """Draw ``num_samples`` images from ``G`` as float32 NHWC numpy.
 
     ``minibatch=0`` generates everything in one forward; ``minibatch=k``
@@ -59,12 +59,23 @@ def sample_images(G, depth, alpha, num_samples, *, minibatch=0, rng=None,
     one if None). ``devices``: where the chunks' slices run, in order, one
     replica of G each (a device may repeat: two replicas on one card); by
     default every visible card when G is on one, else G's device.
+    ``truncation_psi``: a StyleGAN G's truncation (None: the model's own,
+    ``StyleGenerator.truncation_psi``; 1: none); a PGGAN G takes none. A
+    StyleGAN G draws its noise images from the device's default
+    generator.
     """
     with span("sample.request"):
-        return _sample(G, depth, alpha, num_samples, minibatch, rng, devices)
+        return _sample(G, depth, alpha, num_samples, minibatch, rng, devices,
+                       truncation_psi)
 
 
-def _sample(G, depth, alpha, num_samples, minibatch, rng, devices):
+def _sample(G, depth, alpha, num_samples, minibatch, rng, devices,
+            truncation_psi=None):
+    kw = {}
+    if truncation_psi is not None:
+        if not hasattr(G, "truncation_psi"):
+            raise ValueError("truncation_psi is StyleGAN's; this G has none")
+        kw["truncation_psi"] = float(truncation_psi)
     disable_tf32()
     if rng is None:
         rng = np.random.RandomState(0)
@@ -106,7 +117,8 @@ def _sample(G, depth, alpha, num_samples, minibatch, rng, devices):
                     # non_blocking: a blocking upload would wait for the card
                     zi = torch.from_numpy(z[i * per:(i + 1) * per]).to(
                         d, non_blocking=True)
-                    outs.append(replicas[i](zi, depth, alpha, fade=fade))
+                    outs.append(replicas[i](zi, depth, alpha, fade=fade,
+                                            **kw))
             for i, imgs in enumerate(outs):
                 keep = min(per, take - i * per)
                 if keep > 0:

@@ -76,7 +76,14 @@ Random draws come in the JAX step's order: per D repeat the latents and
 then the GP mixing factors, then G's latents (``steps.py:129-131,152-153``,
 ``losses.py:74``). They come from a ``noise(kind, shape)`` hook, ``kind``
 ``"normal"`` or ``"uniform"``; by default it draws from the state's device
-``torch.Generator``. Tests pass in the JAX step's own draws.
+``torch.Generator``. Tests pass in the JAX step's own draws. A StyleGAN G
+(``models/style.py``, a G with ``draw``) draws more after each of its
+latents z, before anything else: the second latents z2 (normal, (B,
+latent)), the mixing coin (uniform, ()), the cutoff (uniform, ()), then
+one noise image a synthesis layer from layer 0 up (normal, (B, 1, res,
+res)); so a D repeat draws z, G's draws, then the mixing factors, and the
+G half z, then G's draws. Both of G's forwards are training forwards:
+each updates G's ``w_avg`` and mixes styles.
 
 TF32 is switched off when the builder is made: cuDNN's convolutions (the
 low-resolution stages) default to it on the card.
@@ -491,22 +498,32 @@ class TrainStepBuilder:
             if not pair:
                 d_pair_fn = None
 
-            def g_fn(z):
-                return G(z, depth, alpha, fade)
+            def latents():
+                """z, and a StyleGAN G's draws (module docstring)."""
+                z = noise("normal", latent)
+                extra = (G.draw(noise, batch_size, depth)
+                         if hasattr(G, "draw") else None)
+                return z, extra
+
+            def g_fn_of(extra):
+                if extra is None:
+                    return lambda z: G(z, depth, alpha, fade)
+                return lambda z: G(z, depth, alpha, fade, draws=extra)
 
             d_params = list(D.parameters())
             for r in range(repeats):
-                z = noise("normal", latent)
+                z, extra = latents()
                 mix = noise("uniform", (batch_size,))
                 d_cost, (d_real, d_fake) = wgan_gp_D_loss(
-                    d_fn, g_fn, reals[r], z, mix, lam, drift, target,
-                    d_pair_fn=d_pair_fn)
+                    d_fn, g_fn_of(extra), reals[r], z, mix, lam, drift,
+                    target, d_pair_fn=d_pair_fn)
                 grads = _grads(d_cost, d_params)
                 if group is not None:
                     grads = all_reduce_grads(grads, group)
                 state.d_opt.step(grads, lr_d)
 
-            z = noise("normal", latent)
+            z, extra = latents()
+            g_fn = g_fn_of(extra)
             with _frozen(D):
                 g_cost = wgan_gp_G_loss(g_fn, d_fn, z)
                 g_params = list(G.parameters())
@@ -519,6 +536,10 @@ class TrainStepBuilder:
                 with torch.no_grad():
                     torch._foreach_lerp_(list(state.g_ema.parameters()),
                                          g_params, 1.0 - beta)
+                    # buffers (StyleGAN's w_avg) are copied, as
+                    # StyleGAN's Gs takes G's non-trainables
+                    for ema_b, b in zip(state.g_ema.buffers(), G.buffers()):
+                        ema_b.copy_(b)
             metrics = {"G_loss": g_cost.detach(), "D_loss": d_cost.detach(),
                        "D_real": d_real.detach(), "D_fake": d_fake.detach()}
             if group is not None:  # one all-reduce of the four
